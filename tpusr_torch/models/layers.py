@@ -1,0 +1,337 @@
+"""Model building blocks with PyTorch semantics, logical NCHW.
+
+Counterpart of ``tpusr/models/layers.py`` for the parts the DIP skip
+network needs. Activations are NCHW tensors kept in channels_last memory,
+so the fused conv kernel sees an NHWC view with no copy.
+
+Init: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for conv kernels and biases,
+torch's Conv2d default, drawn from an explicit ``torch.Generator``. DIP
+builds a fresh net per image, so the init distribution is part of parity.
+
+BatchNorm: torch BatchNorm2d semantics (eps 1e-5, momentum 0.1), with the
+JAX package's one-pass formulas: var = max(E[x^2] - E[x]^2, 0) in f32, the
+biased variance normalizes, the unbiased one goes into the running stats.
+Two hooks carry the fused dataflow: ``conv_stats`` (the producing conv
+already reduced sum/sum^2 of its bias-free output) and ``return_affine``
+(the consuming conv applies the normalize in its prologue).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpusr_torch.ops.fused_conv import fused_conv3x3
+
+
+def _uniform(shape, fan_in: int, generator: torch.Generator | None):
+    bound = 1.0 / math.sqrt(fan_in)
+    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound,
+                                                    generator=generator))
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NHWC view of an NCHW tensor; no copy when it is channels_last."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _nchw(y: torch.Tensor) -> torch.Tensor:
+    """NCHW (channels_last) view of an NHWC tensor."""
+    return y.permute(0, 3, 1, 2)
+
+
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    """OIHW parameter -> contiguous HWIO, the fused kernel's layout."""
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def _per_channel(v: torch.Tensor, dtype) -> torch.Tensor:
+    return v.to(dtype).view(1, -1, 1, 1)
+
+
+def conv_apply(x, weight, stride: int, pad_mode: str, bias=None):
+    """kxk conv with the reference's padding: 'zero' pads inside the conv,
+    'reflection' reflect-pads first (models/DIP/utils.py:96-102)."""
+    if pad_mode not in ("zero", "reflection"):
+        raise ValueError(f"unknown pad_mode {pad_mode!r}")
+    p = (weight.shape[-1] - 1) // 2
+    if pad_mode == "reflection" and p > 0:
+        x = F.pad(x, (p, p, p, p), mode="reflect")
+        p = 0
+    return F.conv2d(x, weight, bias, stride=stride, padding=p)
+
+
+class Conv(nn.Module):
+    """2-D conv (OIHW weight) with torch-style 'same' padding.
+
+    ``forward(x, prologue=(es, eb, act), emit_stats=True)`` runs the fused
+    3x3 kernel: the previous BN's normalize + activation ride the input read,
+    and the kernel reduces per-channel [sum, sum^2] of the bias-free output
+    for the next BN. It then returns (y_without_bias, stats, bias).
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, use_bias: bool = True,
+                 pad_mode: str = "zero", dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k = kernel_size
+        fan_in = k * k * in_channels
+        self.stride, self.pad_mode, self.dtype = stride, pad_mode, dtype
+        self.weight = _uniform((features, in_channels, k, k), fan_in,
+                               generator)
+        self.bias = (_uniform((features,), fan_in, generator) if use_bias
+                     else None)
+
+    def forward(self, x, *, prologue=None, emit_stats: bool = False):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        if prologue is None and not emit_stats:
+            b = None if self.bias is None else self.bias.to(x.dtype)
+            return conv_apply(x, self.weight.to(x.dtype), self.stride,
+                              self.pad_mode, b)
+        if self.stride != 1 or self.weight.shape[-1] != 3:
+            raise ValueError("the fused path takes 3x3 stride-1 convs only")
+        es, eb, act = prologue if prologue is not None else (None, None, None)
+        out = fused_conv3x3(_nhwc(x), _hwio(self.weight), es, eb, act=act,
+                            pad_mode=self.pad_mode, stats=emit_stats)
+        bias = self.bias
+        if emit_stats:
+            y, st = out
+            if bias is None:
+                bias = torch.zeros(self.weight.shape[0], device=y.device)
+            return _nchw(y), st, bias
+        y = _nchw(out)
+        return y if bias is None else y + _per_channel(bias, y.dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d with torch semantics and the fused-dataflow hooks.
+
+    * ``conv_stats=(sum, sumsq, n, conv_bias)``: batch stats from the
+      producing conv's epilogue; the conv bias is still pending (not added
+      to x), so mean = sum/n + b goes to the running stats while the affine
+      uses the mean of x as passed.
+    * ``return_affine=True``: return (eff_scale, eff_bias) in f32.
+    * ``update_stats=False``: a train-mode forward whose running-stat update
+      is discarded (the DIP metric and resolve forwards).
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    @torch.no_grad()
+    def _update(self, mean, var, n: int):
+        unbiased = var * (n / max(n - 1, 1))
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+
+    def forward(self, x, use_running_average: bool = False, *,
+                conv_stats=None, return_affine: bool = False,
+                update_stats: bool = True):
+        in_dtype = x.dtype
+        pending = 0.0
+        if use_running_average:
+            mean, var = self.running_mean, self.running_var
+            if conv_stats is not None:
+                pending = conv_stats[3]
+        elif conv_stats is not None:
+            s, ss, n, cb = conv_stats
+            m_raw = s / n
+            var = torch.clamp(ss / n - m_raw.square(), min=0.0)
+            mean = m_raw + cb
+            pending = cb
+            if update_stats:
+                self._update(mean, var, n)
+        else:
+            mean, var, n = _batch_moments(x)
+            if update_stats:
+                self._update(mean, var, n)
+        inv = torch.rsqrt(var + self.eps)
+        eff_scale = inv * self.weight
+        eff_bias = self.bias - (mean - pending) * inv * self.weight
+        if return_affine:
+            return eff_scale, eff_bias
+        return (x * _per_channel(eff_scale, in_dtype)
+                + _per_channel(eff_bias, in_dtype))
+
+
+def _batch_moments(x):
+    """Per-channel mean and biased variance over (N, H, W), one pass
+    (E[x^2] - E[x]^2, clamped: bf16 squares can dip below zero), in f32;
+    an f64 net (the exact yardstick of chip_smoke.py) keeps f64."""
+    dims = (0, 2, 3)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    mean = x.mean(dims, dtype=acc)
+    mean2 = x.square().mean(dims, dtype=acc)
+    var = torch.clamp(mean2 - mean.square(), min=0.0)
+    return mean, var, x.numel() // x.shape[1]
+
+
+class SplitBatchNorm(nn.Module):
+    """BatchNorm2d over a channel concatenation, consuming the parts.
+
+    Declares the same (sum(splits),) params and stats as a BatchNorm over
+    the concat; statistics are per channel, so each part normalizes with
+    its slice.
+    """
+
+    def __init__(self, splits: Sequence[int], momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.splits = tuple(splits)
+        self.momentum, self.eps = momentum, eps
+        c = sum(self.splits)
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, xs, use_running_average: bool = False, *,
+                return_affine: bool = False, update_stats: bool = True):
+        outs, means, varis = [], [], []
+        off = 0
+        for x, ci in zip(xs, self.splits):
+            if use_running_average:
+                mean = self.running_mean[off:off + ci]
+                var = self.running_var[off:off + ci]
+            else:
+                mean, var, n = _batch_moments(x)
+                means.append(mean)
+                varis.append(var * (n / max(n - 1, 1)))
+            sc = self.weight[off:off + ci]
+            bi = self.bias[off:off + ci]
+            inv = torch.rsqrt(var + self.eps)
+            eff_scale = inv * sc
+            eff_bias = bi - mean * inv * sc
+            if return_affine:
+                outs.append((eff_scale, eff_bias))
+            else:
+                outs.append(x * _per_channel(eff_scale, x.dtype)
+                            + _per_channel(eff_bias, x.dtype))
+            off += ci
+        if not use_running_average and update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * torch.cat(means))
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * torch.cat(varis))
+        return outs
+
+
+class SplitConv(nn.Module):
+    """kxk conv over a channel concatenation without materializing it:
+    conv(concat(xs), W) == sum_i conv(xs[i], W[:, slice_i]).
+
+    One (features, sum(splits), k, k) weight, fan_in = k*k*sum(splits), as a
+    Conv over the concat would have. With ``prologues`` (per-part
+    (eff_scale, eff_bias) from a SplitBatchNorm) the LAST part, the trunk,
+    runs through the fused kernel with its prologue, the other parts' sum as
+    its base input and, with ``emit_stats``, the stats of the merged output;
+    the other parts apply their affine explicitly. Returns y, or
+    (y_without_bias, stats, bias) with ``emit_stats``.
+    """
+
+    def __init__(self, splits: Sequence[int], features: int, kernel_size: int,
+                 stride: int = 1, use_bias: bool = True,
+                 pad_mode: str = "zero", dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.splits = tuple(splits)
+        k = kernel_size
+        fan_in = k * k * sum(self.splits)
+        self.stride, self.pad_mode, self.dtype = stride, pad_mode, dtype
+        self.weight = _uniform((features, sum(self.splits), k, k), fan_in,
+                               generator)
+        self.bias = (_uniform((features,), fan_in, generator) if use_bias
+                     else None)
+
+    def forward(self, xs, *, prologues=None, emit_stats: bool = False):
+        if emit_stats and prologues is None:
+            raise ValueError("emit_stats needs the fused path (prologues)")
+        y, st = None, None
+        off = 0
+        for idx, (x, ci) in enumerate(zip(xs, self.splits)):
+            if self.dtype is not None:
+                x = x.to(self.dtype)
+            w = self.weight[:, off:off + ci]
+            pro = prologues[idx] if prologues is not None else None
+            if pro is not None and idx == len(self.splits) - 1:
+                if self.stride != 1 or w.shape[-1] != 3:
+                    raise ValueError("the fused path takes 3x3 stride-1 convs")
+                out = fused_conv3x3(
+                    _nhwc(x), _hwio(w), pro[0], pro[1], act=None,
+                    pad_mode=self.pad_mode, stats=emit_stats,
+                    base=None if y is None else _nhwc(y))
+                if emit_stats:
+                    out, st = out
+                y = _nchw(out)
+            else:
+                if pro is not None:
+                    x = (x * _per_channel(pro[0], x.dtype)
+                         + _per_channel(pro[1], x.dtype))
+                part = conv_apply(x, w.to(x.dtype), self.stride,
+                                  self.pad_mode)
+                y = part if y is None else y + part
+            off += ci
+        bias = self.bias
+        if emit_stats:
+            if bias is None:
+                bias = torch.zeros(self.weight.shape[0], device=y.device)
+            return y, st, bias
+        return y if bias is None else y + _per_channel(bias, y.dtype)
+
+
+def pool2x2(x, mode: str):
+    """torch AvgPool2d(2,2) / MaxPool2d(2,2)."""
+    if mode == "avg":
+        return F.avg_pool2d(x, 2)
+    if mode == "max":
+        return F.max_pool2d(x, 2)
+    raise ValueError(f"unknown pool mode {mode!r}")
+
+
+def upsample2x(x, mode: str = "bilinear"):
+    """torch nn.Upsample(scale_factor=2) (align_corners=False)."""
+    if mode == "nearest":
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    if mode == "bilinear":
+        return F.interpolate(x, scale_factor=2, mode="bilinear",
+                             align_corners=False)
+    raise ValueError(f"unknown upsample mode {mode!r}")
+
+
+def center_crop_to_min(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Center-crop NCHW inputs to the smallest spatial size (the crop half
+    of the reference's Concat, models/DIP/utils.py:10-41)."""
+    th = min(x.shape[2] for x in xs)
+    tw = min(x.shape[3] for x in xs)
+    out = []
+    for x in xs:
+        dh = (x.shape[2] - th) // 2
+        dw = (x.shape[3] - tw) // 2
+        out.append(x[:, :, dh:dh + th, dw:dw + tw])
+    return out
+
+
+def activation(name: str) -> Callable:
+    """'LeakyReLU' | 'ELU' | 'none' (models/DIP/utils.py:62-76)."""
+    if name == "LeakyReLU":
+        return lambda x: F.leaky_relu(x, 0.2)
+    if name == "ELU":
+        return F.elu
+    if name == "none":
+        return lambda x: x
+    raise ValueError(f"unknown activation {name!r}")
