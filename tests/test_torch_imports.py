@@ -24,7 +24,9 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax_or_tpusr():
     mods = ["tpusr_torch"] + _port_modules()
-    assert "tpusr_torch.cli.dip" in mods and "tpusr_torch.ops.fused_conv" in mods
+    for m in ("tpusr_torch.cli.dip", "tpusr_torch.ops.fused_conv",
+              "tpusr_torch.models.rrdb", "tpusr_torch.ops.dense_block"):
+        assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules "

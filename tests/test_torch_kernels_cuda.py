@@ -96,3 +96,72 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fc.fused_conv3x3_fwd(x.half(), w.half())
     with pytest.raises(ValueError, match="w must be"):
         fc.fused_conv3x3_fwd(x, w[:, :, :3].contiguous())
+
+
+def _dense_operands(gen, shape, dtype):
+    """x (N,H,W,64) and the 5 canonical kernels and biases, U(+-1/sqrt(fan
+    in)) as the net initialises them."""
+    from tpusr_torch.ops.dense_block import GC, NF
+
+    def uni(*s, fan_in):
+        return (torch.rand(*s, generator=gen, device="cuda") * 2 - 1) \
+            / fan_in ** 0.5
+
+    x = torch.randn(*shape, NF, generator=gen, device="cuda").to(dtype)
+    ks, bs = [], []
+    for i in range(5):
+        cin, cout = NF + GC * i, GC if i < 4 else NF
+        ks.append(uni(3, 3, cin, cout, fan_in=9 * cin))
+        bs.append(uni(cout, fan_in=9 * cin))
+    return x, ks, bs
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 7, 9), (1, 13, 70), (2, 16, 20),
+                                   (1, 1, 1), (1, 40, 3)])
+def test_dense_block_matches_plain_version(gen, dtype, tol, shape):
+    from tpusr_torch.ops import dense_block as db
+
+    x, ks, bs = _dense_operands(gen, shape, dtype)
+    before = db.LAUNCHES["dense_block"]
+    y = db.dense_block(x, ks, bs)
+    # the plain side: the same values, f32 ones in f64 (exact sums)
+    f64 = dtype == torch.float32
+    yr = db.dense_block_reference(x.double() if f64 else x,
+                                  [k.double() if f64 else k for k in ks],
+                                  [b.double() if f64 else b for b in bs])
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.dtype == dtype
+    assert _rel(y, yr) < tol
+    assert db.LAUNCHES["dense_block"] == before + 1
+
+
+def test_dense_block_autograd_on_the_card_matches_the_cpu(gen):
+    """Kernel C forward and the plain recompute backward on the card against
+    the same Function on the CPU."""
+    from tpusr_torch.ops import dense_block as db
+
+    x, ks, bs = _dense_operands(gen, (1, 11, 14), torch.float32)
+    outs, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in [x] + ks + bs]
+        y = db.dense_block(leaves[0], leaves[1:6], leaves[6:])
+        y.square().sum().backward()
+        outs[dev] = y.detach().cpu()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    assert _rel(outs["cuda"], outs["cpu"]) < 1e-4
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(a, b) < 1e-4
+
+
+def test_dense_block_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    from tpusr_torch.ops import dense_block as db
+
+    x, ks, bs = _dense_operands(gen, (1, 8, 8), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        db.dense_block(x.transpose(1, 2), ks, bs)
+    with pytest.raises(ValueError, match="dtype"):
+        db.dense_block(x.half(), ks, bs)
+    with pytest.raises(ValueError, match="device"):
+        db.dense_block(x, [k.cpu() for k in ks], bs)

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX (flax) SkipNet variables -> the port's SkipNet.
+"""Weight bridge: JAX (flax) variables -> the port's SkipNet and RRDBNet.
 
 The JAX package keeps conv kernels HWIO and BatchNorm params as
 ``scale``/``bias`` with running stats ``mean``/``var`` in a separate
@@ -50,6 +50,27 @@ def load_flax_skipnet(module: nn.Module, params: Mapping,
     """
     flat = _flatten("params", params)
     flat.update(_flatten("batch_stats", batch_stats))
+    _copy_into(module, flat)
+
+
+def _flatten_nested(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Flax params of any depth -> {dotted torch name: array}. ``kernel``
+    (HWIO) becomes an OIHW ``weight``; every other leaf keeps its name and
+    layout (DenseBlock's ``conv{k}_kernel`` stay HWIO, as kernel C reads
+    them)."""
+    flat = {}
+    for name, val in tree.items():
+        if isinstance(val, Mapping):
+            flat.update(_flatten_nested(val, f"{prefix}{name}."))
+        elif name == "kernel":
+            flat[f"{prefix}weight"] = np.asarray(val, np.float32).transpose(
+                3, 2, 0, 1)
+        else:
+            flat[f"{prefix}{name}"] = np.asarray(val, np.float32)
+    return flat
+
+
+def _copy_into(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     state = module.state_dict()
     missing = sorted(set(state) - set(flat))
     extra = sorted(set(flat) - set(state))
@@ -63,3 +84,11 @@ def load_flax_skipnet(module: nn.Module, params: Mapping,
     with torch.no_grad():
         for name, arr in flat.items():
             state[name].copy_(torch.from_numpy(np.array(arr)))
+
+
+def load_flax_rrdbnet(module: nn.Module, params: Mapping) -> None:
+    """Copy flax RRDBNet params (``rrdb{i}/rdb{j}/conv{k}_kernel``,
+    ``conv_first/kernel``, ...) into ``module`` in place. Conv kernels go
+    HWIO -> OIHW; the dense blocks' own kernels stay HWIO. Raises on a
+    missing or extra key and on a shape mismatch."""
+    _copy_into(module, _flatten_nested(params))

@@ -72,16 +72,25 @@ class Conv(nn.Module):
     3x3 kernel: the previous BN's normalize + activation ride the input read,
     and the kernel reduces per-channel [sum, sum^2] of the bias-free output
     for the next BN. It then returns (y_without_bias, stats, bias).
+
+    ``auto_fuse=True`` with ``fusion='auto'`` sends a plain call of a 3x3
+    stride-1 conv through the fused kernel too (no prologue, no stats), with
+    the bias added after; ``fusion='off'`` keeps it on ``F.conv2d``.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int = 1, use_bias: bool = True,
                  pad_mode: str = "zero", dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 auto_fuse: bool = False, fusion: str = "auto"):
         super().__init__()
+        if fusion not in ("auto", "off"):
+            raise ValueError(f"fusion {fusion!r} not in auto/off")
         k = kernel_size
         fan_in = k * k * in_channels
         self.stride, self.pad_mode, self.dtype = stride, pad_mode, dtype
+        self.fused = (auto_fuse and fusion == "auto" and k == 3
+                      and stride == 1 and pad_mode in ("zero", "reflection"))
         self.weight = _uniform((features, in_channels, k, k), fan_in,
                                generator)
         self.bias = (_uniform((features,), fan_in, generator) if use_bias
@@ -90,7 +99,7 @@ class Conv(nn.Module):
     def forward(self, x, *, prologue=None, emit_stats: bool = False):
         if self.dtype is not None:
             x = x.to(self.dtype)
-        if prologue is None and not emit_stats:
+        if prologue is None and not emit_stats and not self.fused:
             b = None if self.bias is None else self.bias.to(x.dtype)
             return conv_apply(x, self.weight.to(x.dtype), self.stride,
                               self.pad_mode, b)
