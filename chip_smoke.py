@@ -4,14 +4,23 @@
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build the CUDA kernels from tpusr_torch/csrc (one nvcc per source, in
-     parallel, sm_90a): A and B (fused_conv3x3.cu), C (dense_block.cu);
+     parallel, sm_90a): A and B (fused_conv3x3.cu), C (dense_block.cu),
+     D and E (degrade.cu);
   2. hold each kernel against its plain PyTorch version at its main path's
      shapes: f32 kernels against the plain version in f64 (max relative
      error 1e-4), bf16 ones against it in bf16 (2e-2). A and B at the DIP
      shapes; C (tpusr/ops/pallas_dense.py:103) at the RRDB trunk's
      (1, 270, 480, 64) and at ragged shapes; A in the RRDB configuration
      (zero pad, no prologue, 64 -> 64) at 270 x 480, 540 x 960 and
-     1080 x 1920;
+     1080 x 1920; A in the SRGAN configuration (zero pad, no prologue,
+     64 -> 64 and 64 -> 256) at every shape the x8 eval of a 128^2 and of
+     an 84 x 127 LR image gives it, and at 85 x 127; D and E (tpusr/ops/pallas_degrade.py:
+     38, 52) at a DIV2K HR frame (1356 x 2040 x 3) and at 85 x 128, 7 x 9
+     and 1 x 1, seeds 0, 1 and 2^31 - 1: salt and pepper exactly equal (it
+     is a function of the Philox uniforms alone, so this holds the integer
+     path exactly), Gaussian equal except at a fraction <= 1e-4 of elements
+     off by exactly 1 (log/cos of two libraries an ulp apart next to an
+     integer); then tests/test_pallas.py's statistics on the HR frame;
   3. DIP: check the whole fused net against the unfused one (in f64) on a
      128^2 input, then drive the main path, ``tpusr_torch.cli.dip.main``,
      at full width (input 32, 128 channels, 5 scales, x8) on a synthetic
@@ -25,7 +34,24 @@ Phases (any failure raises, so the exit code is non-zero):
      inference_mode on a 270 x 480 LR frame (1080 x 1920 out), in f32 and
      bf16: 69 kernel-C and 4 kernel-A launches per frame, the frame time
      (fused and unfused) and a torch.profiler breakdown of one frame;
-  5. time each kernel, its plain version and the PyTorch calls computing
+  5. SRGAN x8 eval: the full-width Generator (16 blocks, 1,697,175
+     parameters, seeded weights and running statistics), fused in f32
+     against unfused in f64 on a 24 x 40 input, with cuDNN's TF32 off (to
+     1e-4) and on, as the CLI runs its 9x9 convs (to 2e-3); then the main
+     path, ``tpusr_torch.cli.eval_gan.run`` with --device cuda in f32
+     and bf16, on a synthetic DIV2K valid tree (a 2048^2 HR with its 256^2 x8 LR, which
+     the loader's /2 makes bench.py's 128^2 -> 1024^2, and a ragged
+     2040 x 1356 HR with its 255 x 169 LR) and a reference-named .pth that
+     the port's export wrote: 36 kernel-A launches per image and none of
+     B-E; then ``generator_forward`` at 128^2 -> 1024^2 (CUDA events, 2
+     warm-up and 10 timed; fused and cuDNN; f32 also with TF32 off) and a
+     profiled window of three images that must record all 36 kernel-A
+     launches of each (as the RRDB frame's window all its kernel-C and A
+     launches), or is taken again, five times at most;
+  6. the degradation path: ``fused_add_gaussian_noise`` and
+     ``fused_add_salt_pepper_noise`` on the DIV2K HR frame, with their
+     launch counts (these functions are the kernels' only entry);
+  7. time each kernel, its plain version and the PyTorch calls computing
      the same function, beside the least time the card could take.
 The line before the last holds the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -44,11 +70,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-RATE = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM peaks
+# H100 SXM peaks: f32 FMA and bf16 tensor cores (data sheet); 32-bit
+# integer instructions, 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white
+# paper), the lowest rate the Philox work of kernels D and E issues at
+RATE = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 16.7e12}
 MEM_BW = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# TF32 keeps 11 significant bits of each cuDNN conv input (unit roundoff
+# 2^-11 = 4.9e-4); the eval CLI's f32 output, with its two 9x9 convs in
+# TF32, is held to the f64 net at four times that
+TF32_TOL = 2e-3
 C = 128  # DIP skip-net width
 LR_RRDB = (270, 480)  # bench.py's rrdb workload: a 1080 x 1920 frame at x4
+LR_GAN = (128, 128)  # bench.py's gan_eval workload: 128^2 -> 1024^2 at x8
+LR_RAGGED = (84, 127)  # a 2040 x 1356 DIV2K image's 255 x 169 x8 LR, halved
+DIV2K_HR = (1356, 2040)  # a DIV2K HR frame, H x W
+# per-thread integer instructions of one Philox4x32-10 call, at most: 10
+# rounds of 4 multiplies and 2 LOP3 XORs; the key schedule is warp-uniform
+# or folds (degrade.cu's header)
+PHILOX_OPS = 60
 
 
 def path_variants():
@@ -200,16 +240,19 @@ def write_pair(root):
 def reset_counts():
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
+    from tpusr_torch.ops import fused_degrade as fd
 
     fc.reset_launch_counts()
     db.reset_launch_counts()
+    fd.reset_launch_counts()
 
 
 def read_counts():
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
+    from tpusr_torch.ops import fused_degrade as fd
 
-    return {**fc.LAUNCHES, **db.LAUNCHES}
+    return {**fc.LAUNCHES, **db.LAUNCHES, **fd.LAUNCHES}
 
 
 def run_main_path(cli, root, dtype, num_iter, log_freq):
@@ -266,19 +309,48 @@ def dip_step(dtype, fusion):
     return step
 
 
-def profile_window(fn, iters):
-    """torch.profiler over ``iters`` calls of fn: the device operations,
-    most device time first, and the device's busy ms per call."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
+def profile_window(fn, iters, expect=None, tries=5):
+    """torch.profiler over ``iters`` calls of fn, after one warm-up step
+    under the profiler: the device operations, most device time first, and
+    the device's busy ms per call. The profiler can lose records (a
+    one-image SRGAN window once held 32 of its 36 kernel-A launches), so
+    ``expect``, a {kernel name part: launches per call} map, makes the
+    window complete: it is taken again until it records exactly those
+    launches, at most ``tries`` times, and raises if it never does."""
+    for attempt in range(1, tries + 1):
+        kernels, busy = _profile_once(fn, iters)
+        seen = {k: sum(e.count for e in kernels if k in e.key)
+                for k in expect or {}}
+        want = {k: n * iters for k, n in (expect or {}).items()}
+        if seen == want:
+            if attempt > 1:
+                print(f"  (profiled window complete at attempt {attempt})")
+            return kernels, busy
+        print(f"  profiled window {attempt} incomplete: recorded {seen}, "
+              f"launched {want}")
+    raise AssertionError(f"no complete profiled window in {tries} tries")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+def _profile_once(fn, iters):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    averages = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: averages.append(
+                     p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        prof.step()
+    (events,) = averages
     # user annotations (the optimizer's record_function range) also sit on
     # the device timeline; counting them would count their kernels twice
-    kernels = [e for e in prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
     kernels.sort(key=lambda e: -e.self_device_time_total)
@@ -445,7 +517,9 @@ def run_rrdb_main_path(dtype, top=12):
                                  f"{counts}")
         del y
         ms = time_ms(lambda: net(lr), 3, warmup=1)
-        kernels, busy = profile_window(lambda: net(lr), 1)
+        kernels, busy = profile_window(
+            lambda: net(lr), 1,
+            expect={"::dense_block_kernel<": 69, "::fwd_kernel<": 4})
         off = rrdb_net(dtype, "off")
         ms_off = time_ms(lambda: off(lr), 3, warmup=1)
         del off
@@ -495,6 +569,450 @@ def measure(label, kern, plain, lib, flops, nbytes, dtype):
           f"{flops / ms / 1e9:.1f} TFLOP/s")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by)
+
+
+# ------------------------------------------------------------------ SRGAN
+SRGAN_A_SHAPES = [  # (x shape, Cout) of every kernel-A call of the x8 eval
+    ((1, *LR_GAN, 64), 64), ((1, *LR_GAN, 64), 256),
+    ((1, 2 * LR_GAN[0], 2 * LR_GAN[1], 64), 256),
+    ((1, 4 * LR_GAN[0], 4 * LR_GAN[1], 64), 256),
+    ((1, *LR_RAGGED, 64), 64), ((1, *LR_RAGGED, 64), 256),
+    ((1, 2 * LR_RAGGED[0], 2 * LR_RAGGED[1], 64), 256),
+    ((1, 4 * LR_RAGGED[0], 4 * LR_RAGGED[1], 64), 256),
+    # the same image with its x8 LR rounded up (255 x 170), halved
+    ((1, LR_RAGGED[0] + 1, LR_RAGGED[1], 64), 64)]
+
+
+def check_srgan_kernels():
+    """Phase 2, SRGAN: kernel A in the generator's configuration (zero pad,
+    no prologue) at every shape the x8 eval gives it. Returns the largest
+    f32 abs error."""
+    from tpusr_torch.ops import fused_conv as fc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            for shape, cout in SRGAN_A_SHAPES:
+                x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                wt = ((torch.rand(3, 3, 64, cout, generator=gen,
+                                  device="cuda") * 2 - 1) / 24).to(dtype)
+                y, _ = fc.fused_conv3x3_fwd(x, wt, reflect=False)
+                yr, _ = fc.fused_conv3x3_fwd_reference(
+                    x.double() if f32 else x, wt.double() if f32 else wt,
+                    reflect=False)
+                torch.cuda.synchronize()
+                err = rel_err(y, yr)
+                print(f"check fused_conv3x3_fwd SRGAN configuration {shape} "
+                      f"64->{cout} zero pad {str(dtype)[6:]}: {err:.3e}")
+                if not err <= TOL[dtype]:
+                    raise AssertionError(f"kernel A disagrees with its plain "
+                                         f"version at {shape} -> {cout} "
+                                         f"{dtype}: {err}")
+                if f32:
+                    worst = max(worst, abs_err(y, yr))
+                del x, y, yr
+    torch.backends.cudnn.allow_tf32 = True
+    return worst
+
+
+def srgan_generator(dtype, blocks=16):
+    """The full-width x8 Generator, weights from seed 0 and running
+    statistics from seed 1 (mean U(-0.2, 0.2), var U(0.5, 1.5))."""
+    from tpusr_torch.models.srgan import Generator
+
+    g = Generator(factor=8, residual_blocks_count=blocks, dtype=dtype,
+                  device="cuda", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, buf in g.named_buffers():
+            lo, hi = ((-0.2, 0.2) if name.endswith("running_mean")
+                      else (0.5, 1.5))
+            buf.copy_(torch.empty(buf.shape).uniform_(lo, hi, generator=gen))
+    return g
+
+
+def check_generator_net():
+    """Phase 5a: the full-width x8 Generator through generator_forward on a
+    24 x 40 LR input, against the unfused net (g_fuse 'off') run in f64
+    from the same weights: fused (g_fuse 'eval', f32) with cuDNN's TF32
+    off, to 1e-4 (kernel A's own accuracy); then as the eval CLI runs it,
+    with PyTorch's default TF32 for the two 9x9 cuDNN convs, to TF32_TOL.
+    The unfused f32 net's distance is printed beside each for scale."""
+    from tpusr_torch.engine.gan import GANTrainConfig, generator_forward
+
+    fused, off = GANTrainConfig(), GANTrainConfig(g_fuse="off")
+    nets = {"auto": (srgan_generator(None), fused),
+            "off": (srgan_generator(None), off),
+            "off_f64": (srgan_generator(None).double(), off)}
+    lr = torch.rand(1, 24, 40, 3, generator=torch.Generator().manual_seed(2))
+    for tf32, tol in ((False, 1e-4), (True, TF32_TOL)):
+        torch.backends.cudnn.allow_tf32 = tf32  # ends at PyTorch's default
+        outs = {}
+        with torch.inference_mode():
+            for name, (net, cfg) in nets.items():
+                outs[name] = generator_forward(
+                    net, lr.to("cuda", next(net.parameters()).dtype), cfg)
+        if outs["auto"].shape != (1, 192, 320, 3):
+            raise AssertionError(f"Generator output "
+                                 f"{tuple(outs['auto'].shape)}")
+        err = {k: rel_err(outs[k], outs["off_f64"]) for k in ("auto", "off")}
+        mode = "on, as the eval CLI runs" if tf32 else "off"
+        print(f"SRGAN Generator x8 at 24x40 -> 192x320, full width (16 "
+              f"blocks), cuDNN TF32 {mode}, against the f64 unfused net: "
+              f"fused f32 {err['auto']:.3e} "
+              f"(tolerance {tol:g}); unfused f32 {err['off']:.3e}; output "
+              f"max |y| {float(outs['off_f64'].abs().max()):.4f}")
+        if not err["auto"] <= tol:
+            raise AssertionError("fused Generator disagrees with the f64 net")
+
+
+def write_valid_tree(root):
+    """A synthetic DIV2K valid tree: 0801, a 2048^2 HR with its 256^2 x8
+    LR (the loader's /2 gives a 128^2 LR and a 1024^2 HR target), and 0802,
+    a 2040 x 1356 HR with its 255 x 169 LR (an 84 x 127 LR, 672 x 1016
+    target). Returns the reference-named .pth of seeded weights that the
+    port's export writes."""
+    from PIL import Image
+    from tpusr_torch.io.checkpoint import (export_torch_generator,
+                                           save_torch_pth)
+
+    hr_dir = os.path.join(root, "DIV2K_valid_HR")
+    lr_dir = os.path.join(root, "DIV2K_valid_LR_x8")
+    os.makedirs(hr_dir)
+    os.makedirs(lr_dir)
+    rng = np.random.default_rng(0)
+    for name, (w, h), lr_size in (("0801", (2048, 2048), (256, 256)),
+                                  ("0802", (2040, 1356), (255, 169))):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        img = np.stack([np.sin(xx / 37.0) * np.cos(yy / 23.0),
+                        np.sin((xx + yy) / 51.0),
+                        np.cos(xx / 17.0 - yy / 29.0)], -1) * 90 + 128
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(
+            np.uint8)
+        hr = Image.fromarray(img)
+        hr.save(os.path.join(hr_dir, f"{name}.png"))
+        hr.resize(lr_size, Image.BICUBIC).save(
+            os.path.join(lr_dir, f"{name}x8.png"))
+    pth = os.path.join(root, "G.pth")
+    save_torch_pth(export_torch_generator(
+        srgan_generator(None).state_dict(), 16, 3), pth)
+    return pth
+
+
+def run_eval_main_path(root, pth, dtype):
+    """Phase 5b: the eval CLI on the card, with the launch counts around
+    it: 36 kernel-A launches per image, none of B-E."""
+    from PIL import Image
+    from tpusr_torch.cli import eval_gan
+
+    out = os.path.join(root, f"out_{dtype}")
+    os.makedirs(out)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = eval_gan.run(["--data_dir", root, "--out_dir", out,
+                            "--model_path", pth, "--save_images", "True",
+                            "--dtype", dtype, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    (stamp,) = os.listdir(os.path.join(out, "out", "GANx8"))
+    img_dir = os.path.join(out, "out", "GANx8", stamp, "images")
+    sizes = {f: Image.open(os.path.join(img_dir, f)).size
+             for f in sorted(os.listdir(img_dir))}
+    n = metrics["Number of images evaluated over"]
+    print(f"eval main path {dtype}: {n} images in {wall:.3f} s (CLI wall "
+          f"time: PNG decode, PIL "
+          f"resizes, model load, metrics and PNG writes included); avg_psnr "
+          f"{metrics['avg_psnr']:.4f} avg_ssim {metrics['avg_ssim']:.4f} "
+          f"avg_lpips {metrics['avg_lpips']}; PNGs {sizes}; launches {counts}")
+    if not (np.isfinite(metrics["avg_psnr"])
+            and np.isfinite(metrics["avg_ssim"])
+            and n == 2):
+        raise AssertionError(f"eval metrics not finite: {metrics}")
+    if sizes != {"0801.png": (1024, 1024), "0802.png": (1016, 672)}:
+        raise AssertionError(f"eval wrote {sizes}")
+    if counts != {**{k: 0 for k in counts}, "fused_conv3x3_fwd": 72}:
+        raise AssertionError(f"eval main path missed kernel A or launched "
+                             f"another kernel: {counts}")
+    return counts
+
+
+def time_generator(dtype, iters=3, top=12):
+    """Phase 5c: generator_forward at 128^2 -> 1024^2 (bench.py's gan_eval
+    workload), CUDA events over 10 images after 2, fused and through cuDNN
+    (g_fuse 'off', for scale only), both with cuDNN's f32 convs in TF32,
+    PyTorch's default, and in f32 the fused path once more with TF32 off
+    (IEEE f32 throughout); then a profiled window of three images split
+    into kernel A, the cuDNN convs and the PyTorch glue, per image."""
+    import dataclasses
+    from tpusr_torch.engine.gan import GANTrainConfig, generator_forward
+
+    name = "float32" if dtype is None else str(dtype)[6:]
+    net = srgan_generator(dtype)
+    lr = torch.rand(1, *LR_GAN, 3, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    cfg = GANTrainConfig(dtype=None if dtype is None else name)
+    off = dataclasses.replace(cfg, g_fuse="off")
+    mpix = 64 * LR_GAN[0] * LR_GAN[1] / 1e6
+    with torch.inference_mode():
+        ms = time_ms(lambda: generator_forward(net, lr, cfg), 10, warmup=2)
+        ms_off = time_ms(lambda: generator_forward(net, lr, off), 10,
+                         warmup=2)
+        ieee = ""
+        if dtype is None:
+            torch.backends.cudnn.allow_tf32 = False
+            ms_ieee = time_ms(lambda: generator_forward(net, lr, cfg), 10,
+                              warmup=2)
+            torch.backends.cudnn.allow_tf32 = True
+            ieee = (f", g_fuse eval with TF32 off {ms_ieee:.3f} ms "
+                    f"({mpix / ms_ieee * 1e3:.3f} MPix/s)")
+        kernels, busy = profile_window(
+            lambda: generator_forward(net, lr, cfg), iters,
+            expect={"::fwd_kernel<": 36})
+    split = {"kernel A": sum(e.self_device_time_total for e in kernels
+                             if "fwd_kernel" in e.key) / iters / 1e3,
+             "glue (PyTorch elementwise, copies)": sum(
+                 e.self_device_time_total for e in kernels
+                 if "at::native" in e.key or "Memcpy" in e.key
+                 or "Memset" in e.key) / iters / 1e3}
+    split["cuDNN 9x9 convs (the rest)"] = busy - sum(split.values())
+    print(f"SRGAN x8 eval 128^2 -> 1024^2, full width, {name}: g_fuse eval "
+          f"{ms:.3f} ms ({mpix / ms * 1e3:.3f} MPix/s), off (cuDNN) "
+          f"{ms_off:.3f} ms ({mpix / ms_off * 1e3:.3f} MPix/s){ieee}; "
+          f"profiled, "
+          f"per image: busy {busy:.3f} ms, idle share {1 - busy / ms:.4f}, "
+          f"kernel A's share of busy {split['kernel A'] / busy:.4f} "
+          f"(all 36 of its launches recorded), "
+          f"{sum(e.count for e in kernels) / iters:.1f} device operations; "
+          + ", ".join(f"{g} {v:.3f} ms" for g, v in split.items()))
+    print_top(kernels, iters, top, "image")
+    return dict(ms=ms, ms_off=ms_off, busy=busy, **split)
+
+
+# ------------------------------------------------------------ degradation
+def check_gaussian(got, want, label):
+    """Equal except at a fraction <= 1e-4 of elements, each off by 1."""
+    diff = (got - want).abs()
+    off = int((diff > 0).sum())
+    if not (set(diff.unique().tolist()) <= {0.0, 1.0}
+            and off <= 1e-4 * got.numel()):
+        raise AssertionError(f"kernel D disagrees with its plain version at "
+                             f"{label}: {off} elements differ, largest "
+                             f"{float(diff.max())}")
+    return off, float(diff.max())
+
+
+def check_degrade_kernels():
+    """Phase 2, degradation: kernels D and E against their plain versions
+    (same seed, same image), then the statistics of tests/test_pallas.py
+    on the HR frame. Returns the largest abs error of each."""
+    from tpusr_torch.ops import fused_degrade as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"fused_add_gaussian_noise": 0.0,
+             "fused_add_salt_pepper_noise": 0.0}
+    for shape in ((*DIV2K_HR, 3), (85, 128, 3), (7, 9, 3), (1, 1, 3)):
+        img = torch.randint(0, 256, shape, generator=gen,
+                            device="cuda").float()
+        for seed in (0, 1, 2 ** 31 - 1):
+            g = fd.fused_add_gaussian_noise(img, seed, std=0.1)
+            gr = fd.fused_add_gaussian_noise_reference(img, seed, std=0.1)
+            off, err = check_gaussian(g, gr, f"{shape} seed {seed}")
+            worst["fused_add_gaussian_noise"] = max(
+                worst["fused_add_gaussian_noise"], err)
+            bad = 0
+            for s, p in ((0.05, 0.05), (0.5, 0.3)):
+                sp = fd.fused_add_salt_pepper_noise(img, seed, s=s, p=p)
+                spr = fd.fused_add_salt_pepper_noise_reference(img, seed, s,
+                                                               p)
+                bad += int((sp != spr).sum())
+            print(f"check degradation {shape} seed {seed}: Gaussian {off} of "
+                  f"{g.numel()} elements differ by 1; salt and pepper "
+                  f"{bad} differ")
+            if bad:
+                raise AssertionError(f"kernel E disagrees with its plain "
+                                     f"version at {shape} seed {seed}")
+    # tests/test_pallas.py's statistics, on the HR frame
+    flat = torch.full((*DIV2K_HR, 3), 128.0, device="cuda")
+    img_hr = torch.randint(0, 256, (*DIV2K_HR, 3), generator=gen,
+                           device="cuda").float()
+    g = fd.fused_add_gaussian_noise(flat, 7, std=0.1)
+    gi = fd.fused_add_gaussian_noise(img_hr, 8, std=0.05)
+    s = p = 0.05
+    sp = fd.fused_add_salt_pepper_noise(flat, 5, s=s, p=p)
+    salt, pepper = sp == 255, sp == 0
+    stats = dict(
+        mean=float(g.mean()), std=float(g.std()),
+        salt=float(salt[..., 0].float().mean()),
+        pepper=float(pepper[..., 0].float().mean()))
+    print(f"degradation statistics on the {DIV2K_HR} HR frame: Gaussian "
+          f"(flat 128, std 0.1) {stats['mean']:.4f} +- {stats['std']:.4f}; "
+          f"salt rate {stats['salt']:.5f} (s (1 - p) = {s * (1 - p):.5f}), "
+          f"pepper rate {stats['pepper']:.5f} (p = {p})")
+    checks = {
+        "in [0, 255] and integer": all(
+            float(t.min()) >= 0 and float(t.max()) <= 255
+            and bool(torch.equal(t, t.floor())) for t in (g, gi)),
+        "mean within 3 of 128": abs(stats["mean"] - 128) < 3,
+        "std in (20, 32)": 20 < stats["std"] < 32,
+        "salt rate near s (1 - p)": abs(stats["salt"] - s * (1 - p)) < 2e-3,
+        "pepper rate near p": abs(stats["pepper"] - p) < 2e-3,
+        "masks shared across channels": bool(
+            torch.equal(salt.all(-1), salt.any(-1))
+            and torch.equal(pepper.all(-1), pepper.any(-1))),
+        "untouched pixels unchanged": bool(
+            torch.all(sp[~salt & ~pepper] == 128.0)),
+        "noise moved the image": not torch.equal(gi, img_hr)}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"degradation statistics failed: {failed}")
+    return worst
+
+
+def run_degrade_path():
+    """Phase 6: the two degradation functions on the DIV2K HR frame, with
+    the launch counts around them."""
+    from tpusr_torch.ops import fused_degrade as fd
+
+    img = torch.randint(0, 256, (*DIV2K_HR, 3), generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda", dtype=torch.uint8)
+    reset_counts()
+    g = fd.fused_add_gaussian_noise(img, 11, std=0.05)
+    sp = fd.fused_add_salt_pepper_noise(img, 12, s=0.01, p=0.01)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"degradation path on a {DIV2K_HR} uint8 frame: Gaussian mean "
+          f"|change| {float((g - img.float()).abs().mean()):.4f}, salt and "
+          f"pepper changed {float((sp != img.float()).float().mean()):.5f} "
+          f"of elements; launches {counts}")
+    if counts != {**{k: 0 for k in counts}, "fused_add_gaussian_noise": 1,
+                  "fused_add_salt_pepper_noise": 1}:
+        raise AssertionError(f"degradation path missed its kernels: "
+                             f"{counts}")
+    return counts
+
+
+def device_ms(fn, n):
+    """Device time per call of fn, for calls shorter than their Python
+    launch path (kernels D and E take ~20 us): a sleep kernel holds the
+    stream while the host enqueues n calls, so the events time the queued
+    work back to back. The sleep is twice a dry run's enqueue time; raises
+    if the host still took longer than the sleep."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dry_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(int(2 * dry_ms * 2e6) + 10_000_000)  # ~2e6 cycles/ms
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    if host_ms >= s0.elapsed_time(a):
+        raise AssertionError(f"enqueueing {n} calls took {host_ms:.1f} ms, "
+                             f"longer than the {s0.elapsed_time(a):.1f} ms "
+                             f"sleep: the events would time the host")
+    return a.elapsed_time(b) / n
+
+
+def time_degrade_kernels():
+    """Phase 7, degradation, at the DIV2K HR frame in f32: the device times
+    of the kernel (sleep-held events), of its plain version and of the
+    eager PyTorch chain that computes the same function with torch's own
+    generator (no single PyTorch call does; both profiler busy time),
+    beside the bound: bytes (read once, written once) or Philox's integer
+    work, whichever is larger."""
+    from tpusr_torch.ops import fused_degrade as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    img = torch.randint(0, 256, (*DIV2K_HR, 3), generator=gen,
+                        device="cuda").float()
+    n, hw = img.numel(), DIV2K_HR[0] * DIV2K_HR[1]
+    std255, s, p = 0.05 * 255.0, 0.01, 0.01
+
+    def gauss_chain():
+        noise = torch.randn(img.shape, generator=gen, device="cuda")
+        return torch.floor(torch.clamp(img + noise * std255, 0.0, 255.0))
+
+    def sp_chain():
+        us = torch.rand((*DIV2K_HR, 1), generator=gen, device="cuda")
+        up = torch.rand((*DIV2K_HR, 1), generator=gen, device="cuda")
+        return torch.where(up < p, 0.0, torch.where(us < s, 255.0, img))
+
+    rows = {}
+    for name, kern, plain, chain, calls in (
+            ("fused_add_gaussian_noise",
+             lambda: fd.fused_add_gaussian_noise(img, 1, 0.05),
+             lambda: fd.fused_add_gaussian_noise_reference(img, 1, 0.05),
+             gauss_chain, (n + 1) // 2),
+            ("fused_add_salt_pepper_noise",
+             lambda: fd.fused_add_salt_pepper_noise(img, 1, s, p),
+             lambda: fd.fused_add_salt_pepper_noise_reference(img, 1, s, p),
+             sp_chain, hw)):
+        ms = device_ms(kern, 50)
+        call_ms = time_ms(kern, 50)
+        # the plain version and the chain launch many kernels each, whose
+        # Python launch path outlasts them: their device busy time
+        plain_ms = profile_window(plain, 5)[1]
+        chain_ms = profile_window(chain, 5)[1]
+        ops = PHILOX_OPS * calls
+        bms, by = bound(ops, 2 * 4 * n, torch.int32)
+        print(f"time {name} at {DIV2K_HR + (3,)} f32 (device times): "
+              f"kernel {ms:.4f} ms ({call_ms:.4f} ms per call from Python), "
+              f"plain {plain_ms:.4f} ms, eager PyTorch chain "
+              f"{chain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}; bytes {2 * 4 * n / MEM_BW * 1e3:.4f}"
+              f" ms, Philox {ops / RATE[torch.int32] * 1e3:.4f} ms), "
+              f"{2 * 4 * n / ms / 1e6:.1f} GB/s")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          library_chain_ms=chain_ms, call_ms=call_ms,
+                          bound_ms=bms, bound_by=by,
+                          shape=f"({DIV2K_HR[0]}, {DIV2K_HR[1]}, 3), f32")
+    return rows
+
+
+def time_srgan_kernel_a():
+    """Phase 7, SRGAN: kernel A at (1, 128, 128, 64) -> 64 and (1, 512,
+    512, 64) -> 256, zero pad, f32 and bf16, against one cuDNN conv
+    without TF32."""
+    from tpusr_torch.ops import fused_conv as fc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    with torch.inference_mode():
+        for (shape, cout) in (((1, *LR_GAN, 64), 64),
+                              ((1, 4 * LR_GAN[0], 4 * LR_GAN[1], 64), 256)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                wt = (torch.randn(3, 3, 64, cout, generator=gen,
+                                  device="cuda") / 24).to(dtype)
+                w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+                _, h, w, _ = shape
+                rows[(shape, cout, dtype)] = measure(
+                    f"fused_conv3x3_fwd at {shape} -> {cout}, zero pad, "
+                    f"{str(dtype)[6:]}",
+                    lambda: fc.fused_conv3x3_fwd(x, wt, reflect=False),
+                    lambda: fc.fused_conv3x3_fwd_reference(x, wt,
+                                                           reflect=False),
+                    lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw,
+                                     padding=1),
+                    2 * 9 * 64 * cout * h * w,
+                    (x.numel() + h * w * cout + wt.numel())
+                    * x.element_size(), dtype)
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
 
 
 def time_kernels(fc, name, size, act, has_base):
@@ -623,7 +1141,9 @@ def main() -> int:
     rrdb_worst = check_rrdb_kernels()
     worst["dense_block"] = rrdb_worst["dense_block"]
     worst["fused_conv3x3_fwd"] = max(worst["fused_conv3x3_fwd"],
-                                     rrdb_worst["fused_conv3x3_fwd"])
+                                     rrdb_worst["fused_conv3x3_fwd"],
+                                     check_srgan_kernels())
+    worst.update(check_degrade_kernels())
     print(f"phase 2: kernels agree with their plain versions; largest f32 "
           f"abs errors {worst}")
 
@@ -644,6 +1164,19 @@ def main() -> int:
         paths[f"rrdb {name}"] = run_rrdb_main_path(dtype)
     print("phase 4: RRDB main path ran through the kernels")
 
+    check_generator_net()
+    with tempfile.TemporaryDirectory() as root:
+        pth = write_valid_tree(root)
+        for dtype in ("float32", "bfloat16"):
+            paths[f"srgan eval {dtype}"] = run_eval_main_path(root, pth,
+                                                              dtype)
+    print("phase 5: SRGAN eval main path ran through kernel A")
+    for dtype in (None, torch.bfloat16):
+        time_generator(dtype)
+
+    paths["degrade"] = run_degrade_path()
+    print("phase 6: degradation path ran through kernels D and E")
+
     time_kernels(fc, "down0_conv2", 256, "leaky_relu", False)
     timed = time_kernels(fc, "up0_conv", 512, None, True)
     rrdb_timed = time_rrdb_kernels()
@@ -655,15 +1188,26 @@ def main() -> int:
         "shape": "(1, 1080, 1920, 64) -> 64, zero pad",
         "float32": rrdb_timed[("fused_conv3x3_fwd", torch.float32)],
         "bfloat16": rrdb_timed[("fused_conv3x3_fwd", torch.bfloat16)]}
-    print("phase 5: timed (the record below is at up0_conv, 512^2, for A "
-          "and B, at (1, 270, 480, 64) for C)")
+    srgan_timed = time_srgan_kernel_a()
+    timed["fused_conv3x3_fwd"]["srgan"] = {
+        f"{shape} -> {cout}, zero pad, {str(dtype)[6:]}": row
+        for (shape, cout, dtype), row in srgan_timed.items()}
+    timed.update(time_degrade_kernels())
+    print("phase 7: timed (the record below is at up0_conv, 512^2, for A "
+          "and B, at (1, 270, 480, 64) for C, at the DIV2K HR frame for D "
+          "and E)")
 
     replaces = {"fused_conv3x3_fwd": "tpusr/ops/pallas_conv.py:72",
                 "fused_conv3x3_wgrad": "tpusr/ops/pallas_conv.py:297",
-                "dense_block": "tpusr/ops/pallas_dense.py:103"}
+                "dense_block": "tpusr/ops/pallas_dense.py:103",
+                "fused_add_gaussian_noise": "tpusr/ops/pallas_degrade.py:38",
+                "fused_add_salt_pepper_noise":
+                    "tpusr/ops/pallas_degrade.py:52"}
     sources = {"fused_conv3x3_fwd": "tpusr_torch/csrc/fused_conv3x3.cu",
                "fused_conv3x3_wgrad": "tpusr_torch/csrc/fused_conv3x3.cu",
-               "dense_block": "tpusr_torch/csrc/dense_block.cu"}
+               "dense_block": "tpusr_torch/csrc/dense_block.cu",
+               "fused_add_gaussian_noise": "tpusr_torch/csrc/degrade.cu",
+               "fused_add_salt_pepper_noise": "tpusr_torch/csrc/degrade.cu"}
     record = {"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
              launches=sum(c[k] for c in paths.values()),

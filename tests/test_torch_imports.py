@@ -25,7 +25,11 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax_or_tpusr():
     mods = ["tpusr_torch"] + _port_modules()
     for m in ("tpusr_torch.cli.dip", "tpusr_torch.ops.fused_conv",
-              "tpusr_torch.models.rrdb", "tpusr_torch.ops.dense_block"):
+              "tpusr_torch.models.rrdb", "tpusr_torch.ops.dense_block",
+              "tpusr_torch.ops.fused_degrade", "tpusr_torch.ops.bicubic",
+              "tpusr_torch.ops.degrade", "tpusr_torch.models.srgan",
+              "tpusr_torch.models.lpips", "tpusr_torch.io.checkpoint",
+              "tpusr_torch.engine.gan", "tpusr_torch.cli.eval_gan"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

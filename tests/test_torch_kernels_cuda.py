@@ -165,3 +165,77 @@ def test_dense_block_wrapper_rejects_what_the_kernel_does_not_take(gen):
         db.dense_block(x.half(), ks, bs)
     with pytest.raises(ValueError, match="device"):
         db.dense_block(x, [k.cpu() for k in ks], bs)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 128, 128, 64, 256),
+                                   (1, 85, 127, 64, 64),
+                                   (1, 37, 19, 64, 256)])
+def test_kernel_a_at_the_srgan_shapes(gen, dtype, tol, shape):
+    """The generator's convs: zero pad, no prologue, 64 -> 64 and 64 -> 256,
+    at 128^2 and at ragged LR shapes."""
+    n, h, w, cin, cout = shape
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda").to(dtype)
+    wt = ((torch.rand(3, 3, cin, cout, generator=gen, device="cuda") * 2 - 1)
+          / 24).to(dtype)
+    before = fc.LAUNCHES["fused_conv3x3_fwd"]
+    y, _ = fc.fused_conv3x3_fwd(x, wt, reflect=False)
+    f64 = dtype == torch.float32
+    yr, _ = fc.fused_conv3x3_fwd_reference(x.double() if f64 else x,
+                                           wt.double() if f64 else wt,
+                                           reflect=False)
+    torch.cuda.synchronize()
+    assert y.shape == (n, h, w, cout) and _rel(y, yr) < tol
+    assert fc.LAUNCHES["fused_conv3x3_fwd"] == before + 1
+
+
+def check_gaussian_against_plain(got, want):
+    """Equal, except where log/cos of the card and of the plain version
+    differ by an ulp next to an integer: a fraction <= 1e-4 of the
+    elements, each off by exactly 1."""
+    diff = (got - want).abs()
+    assert set(diff.unique().tolist()) <= {0.0, 1.0}
+    assert float((diff > 0).float().mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(1356, 2040, 3), (85, 128, 3), (7, 9, 3),
+                                   (1, 1, 3), (3, 5, 1)])
+@pytest.mark.parametrize("seed", [0, 1, 2 ** 31 - 1, -7])
+def test_degradation_kernels_match_plain_versions(gen, shape, seed):
+    from tpusr_torch.ops import fused_degrade as fd
+
+    img = torch.randint(0, 256, shape, generator=gen, device="cuda").float()
+    before = dict(fd.LAUNCHES)
+    g = fd.fused_add_gaussian_noise(img, seed, std=0.1)
+    sp = fd.fused_add_salt_pepper_noise(img, seed, s=0.05, p=0.05)
+    gr = fd.fused_add_gaussian_noise_reference(img, seed, std=0.1)
+    spr = fd.fused_add_salt_pepper_noise_reference(img, seed, s=0.05, p=0.05)
+    torch.cuda.synchronize()
+    assert g.shape == sp.shape == shape and g.dtype == torch.float32
+    check_gaussian_against_plain(g, gr)
+    assert torch.equal(sp, spr)
+    assert fd.LAUNCHES["fused_add_gaussian_noise"] == (
+        before["fused_add_gaussian_noise"] + 1)
+    assert fd.LAUNCHES["fused_add_salt_pepper_noise"] == (
+        before["fused_add_salt_pepper_noise"] + 1)
+
+
+def test_degradation_kernels_statistics(gen):
+    """tests/test_pallas.py's checks on the card: range, integers, mean and
+    spread, rates, channel-shared masks, untouched pixels."""
+    from tpusr_torch.ops import fused_degrade as fd
+
+    out = fd.fused_add_gaussian_noise(
+        torch.full((64, 128, 3), 128.0, device="cuda"), 7, std=0.1)
+    assert 0 <= float(out.min()) and float(out.max()) <= 255
+    assert torch.equal(out, out.floor())
+    assert 20 < float(out.std()) < 32 and abs(float(out.mean()) - 128) < 3
+    sp = fd.fused_add_salt_pepper_noise(
+        torch.full((128, 128, 3), 128.0, device="cuda"), 5, s=0.05, p=0.05)
+    salt, pepper = sp == 255, sp == 0
+    assert torch.equal(salt.all(-1), salt.any(-1))
+    assert torch.equal(pepper.all(-1), pepper.any(-1))
+    assert 0.02 < float(salt[..., 0].float().mean()) < 0.08
+    assert 0.02 < float(pepper[..., 0].float().mean()) < 0.08
+    assert torch.all(sp[~salt & ~pepper] == 128.0)

@@ -7,8 +7,9 @@ Usage (flags mirror the JAX CLI, itself DIP.py:236-248, plus --device):
         [--device cuda] [--conv_fusion auto|off]
 
 Writes the same ``out/DIPx{f}/<timestamp>[/<noise>/<p>]`` tree, PNGs and
-``*_log.txt`` as the JAX CLI. LPIPS logs NaN (the LPIPS model is not ported
-yet, as the JAX CLI logs NaN without weights). L-BFGS, meshgrid input,
+``*_log.txt`` as the JAX CLI. The final LPIPS comes from
+``tpusr_torch.models.lpips.make_lpips`` and logs NaN without weights
+(``TPUSR_LPIPS_WEIGHTS``), as in the JAX CLI. L-BFGS, meshgrid input,
 opt_over other than net, --bucket, --batch_images and --profile_dir are not
 ported yet and exit with a message when set.
 """
@@ -32,6 +33,7 @@ from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
 from tpusr_torch.io.images import save_image, to_uint8
 from tpusr_torch.io.logs import save_log
+from tpusr_torch.models.lpips import make_lpips
 
 
 def main(LR_dir, HR_dir, out_dir, factor, num_images, config: DIPConfig,
@@ -45,6 +47,7 @@ def main(LR_dir, HR_dir, out_dir, factor, num_images, config: DIPConfig,
     print(f"Performing DIP SISR on {n} images.")
     print(f"Output directory: {out_dir}")
 
+    lpips_fn = make_lpips()
     running = {"psnr": 0.0, "ssim": 0.0, "lpips": 0.0}
     n_points = config.num_iter // config.log_freq
     curves = {
@@ -72,7 +75,8 @@ def main(LR_dir, HR_dir, out_dir, factor, num_images, config: DIPConfig,
         hr_dev = torch.from_numpy(hr_img[None]).to(dev)
         running["psnr"] += float(psnr_fn(resolved, hr_dev))
         running["ssim"] += float(ssim_fn(resolved, hr_dev, data_range=1.0))
-        running["lpips"] += float("nan")
+        running["lpips"] += (float(lpips_fn(resolved, hr_dev))
+                             if lpips_fn else float("nan"))
         curves["Average PSNR per epoch"] += image_curves["psnr"][:n_points]
         curves["Average SSIM per epoch"] += image_curves["ssim"][:n_points]
         curves["Average LPIPS per epoch"] += image_curves["lpips"][:n_points]

@@ -1,14 +1,16 @@
-"""DIV2K dataset pipeline for DIP — pairing, resize rules, LR noise.
+"""DIV2K dataset pipeline — pairing, resize rules, LR noise, GAN scaling.
 
 Counterpart of ``tpusr/data/div2k.py`` (reference: dataset.py
-get_image_pair :9-62, DIV2KDataset :69-95) on its PIL path:
+get_image_pair :9-62, DIV2KDataset :69-95, GANDIV2KDataset :98-177) on its
+PIL path:
   * HR ``<name>.png`` pairs with LR ``<name>x8.png``;
   * both images are bicubic-shrunk by 2, the LR once more with downsample;
   * HR is resized to exactly scale_factor x LR, or both shrink to the
     largest multiple when that would exceed the original HR in both dims;
   * optional Gaussian / salt-and-pepper noise on the LR from a numpy
     Generator seeded per (seed, index);
-  * float32 HWC arrays in [0, 1].
+  * float32 HWC arrays in [0, 1]; the GAN variant maps HR to [-1, 1] and
+    cuts aligned random train patches.
 """
 
 from __future__ import annotations
@@ -117,3 +119,58 @@ class DIV2KDataset:
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
+
+
+class GANDIV2KDataset(DIV2KDataset):
+    """dataset.py:98-177 parity: SRGAN scaling + aligned train patches."""
+
+    def __init__(self, LR_dir, scale_factor, downsample=False, noise_type=None,
+                 num_images=-1, HR_dir=None, LR_patch_size=None, train=False,
+                 seed=0, legacy_scale=False):
+        super().__init__(LR_dir, scale_factor, downsample, noise_type,
+                         num_images, HR_dir, seed)
+        self.LR_patch_size = LR_patch_size
+        self.train = train
+        self.legacy_scale = legacy_scale
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int):
+        """Re-seed patch sampling per epoch (the reference's global
+        np.random draws a new crop every __getitem__; explicit here)."""
+        self._epoch = epoch
+
+    @staticmethod
+    def scale_images(lr, hr, legacy_scale: bool = False):
+        """LR stays [0,1], HR -> [-1,1], the intended SRGAN scaling;
+        ``legacy_scale=True`` reproduces the reference's second /255
+        (dataset.py:149-159)."""
+        if legacy_scale:
+            return lr / 255.0, (hr / 255.0) * 2.0 - 1.0
+        return lr, hr * 2.0 - 1.0
+
+    def get_train_patches(self, lr, hr, rng):
+        """Aligned random crop (dataset.py:121-147): LR center uniform in
+        the valid range, HR patch = LR patch x factor."""
+        lr_h, lr_w = lr.shape[0], lr.shape[1]
+        pw, ph = self.LR_patch_size
+        f = self.config.scale_factor
+        cx = rng.integers(pw // 2, lr_w - pw // 2)
+        cy = rng.integers(ph // 2, lr_h - ph // 2)
+        left = int(cx - pw // 2)
+        top = int(cy - ph // 2)
+        lr_patch = lr[top:top + ph, left:left + pw]
+        hr_patch = hr[top * f:(top + ph) * f, left * f:(left + pw) * f]
+        return lr_patch, hr_patch
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng((self.config.seed, self._epoch, idx))
+        lr, hr, name = get_image_pair(self.config, self.HR_images[idx], rng)
+        lr, hr = self.scale_images(lr, hr, self.legacy_scale)
+        if self.train:
+            lr, hr = self.get_train_patches(lr, hr, rng)
+        return lr, hr, name
+
+    def base_pair(self, idx):
+        """Full (uncropped, unscaled) [0,1] pair, seeded per (seed, idx)."""
+        rng = np.random.default_rng((self.config.seed, idx))
+        return get_image_pair(self.config, self.HR_images[idx], rng)

@@ -24,9 +24,16 @@ def save_image(image: np.ndarray, image_name: str, out_dir: str) -> str:
     return path
 
 
-def to_uint8(x: np.ndarray) -> np.ndarray:
-    """NHWC/HWC float in [0, 1] -> HWC uint8."""
+def to_uint8(x: np.ndarray, from_range: str = "01") -> np.ndarray:
+    """NHWC/HWC float -> HWC uint8. from_range '01' or 'pm1' (tanh output).
+
+    The reference saves tanh output with a bare *255 cast (eval_GAN.py:53-55)
+    — that clamps negatives to wrap; we map [-1,1] -> [0,1] first (documented
+    fix, SURVEY.md §7 behavior catalog).
+    """
     x = np.asarray(x)
     if x.ndim == 4:
         x = x[0]
+    if from_range == "pm1":
+        x = (x + 1.0) / 2.0
     return np.clip(x * 255.0, 0, 255).astype(np.uint8)

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX (flax) variables -> the port's SkipNet and RRDBNet.
+"""Weight bridge: JAX (flax) variables -> the port's SkipNet, RRDBNet and
+SRGAN Generator.
 
 The JAX package keeps conv kernels HWIO and BatchNorm params as
 ``scale``/``bias`` with running stats ``mean``/``var`` in a separate
@@ -53,20 +54,24 @@ def load_flax_skipnet(module: nn.Module, params: Mapping,
     _copy_into(module, flat)
 
 
-def _flatten_nested(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
-    """Flax params of any depth -> {dotted torch name: array}. ``kernel``
-    (HWIO) becomes an OIHW ``weight``; every other leaf keeps its name and
-    layout (DenseBlock's ``conv{k}_kernel`` stay HWIO, as kernel C reads
-    them)."""
+def _flatten_nested(tree: Mapping, prefix: str = "",
+                    renames: Mapping[str, str] | None = None
+                    ) -> dict[str, np.ndarray]:
+    """Flax variables of any depth -> {dotted torch name: array}. ``kernel``
+    (HWIO) becomes an OIHW ``weight``; a leaf named in ``renames`` takes the
+    torch name given there; every other leaf keeps its name and layout
+    (DenseBlock's ``conv{k}_kernel`` stay HWIO, as kernel C reads them)."""
+    renames = renames or {}
     flat = {}
     for name, val in tree.items():
         if isinstance(val, Mapping):
-            flat.update(_flatten_nested(val, f"{prefix}{name}."))
+            flat.update(_flatten_nested(val, f"{prefix}{name}.", renames))
         elif name == "kernel":
             flat[f"{prefix}weight"] = np.asarray(val, np.float32).transpose(
                 3, 2, 0, 1)
         else:
-            flat[f"{prefix}{name}"] = np.asarray(val, np.float32)
+            flat[f"{prefix}{renames.get(name, name)}"] = np.asarray(
+                val, np.float32)
     return flat
 
 
@@ -92,3 +97,17 @@ def load_flax_rrdbnet(module: nn.Module, params: Mapping) -> None:
     HWIO -> OIHW; the dense blocks' own kernels stay HWIO. Raises on a
     missing or extra key and on a shape mismatch."""
     _copy_into(module, _flatten_nested(params))
+
+
+def load_flax_generator(module: nn.Module, params: Mapping,
+                        batch_stats: Mapping) -> None:
+    """Copy flax SRGAN Generator variables (``res{i}/conv1/kernel``,
+    ``res{i}/bn1/scale``, ``prelu1/alpha``, ``ps{i}/conv1/kernel``, ...;
+    ``batch_stats`` ``.../mean`` and ``.../var``) into ``module`` in place.
+    Conv kernels go HWIO -> OIHW, BN scale/mean/var go to weight/
+    running_mean/running_var. Raises on a missing or extra key and on a
+    shape mismatch."""
+    flat = _flatten_nested(params, renames={"scale": "weight"})
+    flat.update(_flatten_nested(batch_stats, renames={
+        "mean": "running_mean", "var": "running_var"}))
+    _copy_into(module, flat)

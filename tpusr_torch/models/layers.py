@@ -76,6 +76,8 @@ class Conv(nn.Module):
     ``auto_fuse=True`` with ``fusion='auto'`` sends a plain call of a 3x3
     stride-1 conv through the fused kernel too (no prologue, no stats), with
     the bias added after; ``fusion='off'`` keeps it on ``F.conv2d``.
+    ``forward(x, fuse=...)`` overrides ``auto_fuse`` for one call, as the
+    JAX package's eval forward rebuilds its generator with auto_fuse on.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
@@ -89,17 +91,20 @@ class Conv(nn.Module):
         k = kernel_size
         fan_in = k * k * in_channels
         self.stride, self.pad_mode, self.dtype = stride, pad_mode, dtype
-        self.fused = (auto_fuse and fusion == "auto" and k == 3
-                      and stride == 1 and pad_mode in ("zero", "reflection"))
+        self.fusable = (fusion == "auto" and k == 3 and stride == 1
+                        and pad_mode in ("zero", "reflection"))
+        self.fused = auto_fuse and self.fusable
         self.weight = _uniform((features, in_channels, k, k), fan_in,
                                generator)
         self.bias = (_uniform((features,), fan_in, generator) if use_bias
                      else None)
 
-    def forward(self, x, *, prologue=None, emit_stats: bool = False):
+    def forward(self, x, *, prologue=None, emit_stats: bool = False,
+                fuse: bool | None = None):
         if self.dtype is not None:
             x = x.to(self.dtype)
-        if prologue is None and not emit_stats and not self.fused:
+        fused = self.fused if fuse is None else fuse and self.fusable
+        if prologue is None and not emit_stats and not fused:
             b = None if self.bias is None else self.bias.to(x.dtype)
             return conv_apply(x, self.weight.to(x.dtype), self.stride,
                               self.pad_mode, b)
@@ -301,6 +306,25 @@ class SplitConv(nn.Module):
                 bias = torch.zeros(self.weight.shape[0], device=y.device)
             return y, st, bias
         return y if bias is None else y + _per_channel(bias, y.dtype)
+
+
+class PReLU(nn.Module):
+    """torch nn.PReLU(): one shared slope ``alpha`` of shape (1,), init
+    0.25, applied in x's dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+def pixel_shuffle(x, r: int):
+    """torch nn.PixelShuffle on NCHW: channel c*r*r + dy*r + dx goes to
+    (c, y*r + dy, x*r + dx), the order the JAX package copies over NHWC.
+    The result stays channels_last, the layout the fused kernel reads."""
+    return F.pixel_shuffle(x, r).contiguous(memory_format=torch.channels_last)
 
 
 def pool2x2(x, mode: str):
