@@ -2,6 +2,10 @@
 
     python3 chip_smoke.py
 
+Kernels A and B run on the tensor cores: wgmma in bf16 and 3xTF32
+mma.sync in f32 (three TF32 products per f32 product, so the f32 gates
+below hold unchanged); C, D and E as before.
+
 Phases (any failure raises, so the exit code is non-zero):
   1. build the CUDA kernels from tpusr_torch/csrc (one nvcc per source, in
      parallel, sm_90a): A and B (fused_conv3x3.cu), C (dense_block.cu),
@@ -26,7 +30,9 @@ Phases (any failure raises, so the exit code is non-zero):
      at full width (input 32, 128 channels, 5 scales, x8) on a synthetic
      DIV2K-layout pair (512^2 HR canvas): 100 f32 iterations and a short
      bf16 run, with the kernels' launch counts read around each run; then
-     the time of one iteration and a torch.profiler breakdown of it;
+     the time of one iteration and a torch.profiler breakdown of it, whose
+     window must record all 20 kernel-A and 10 kernel-B launches of each
+     fused iteration;
   4. RRDB: the full-width RRDBNet (nf 64, nb 23, gc 32, x4), fused in f32
      against unfused in f64 on a 27 x 45 input (ragged tiles at every
      scale); then bench.py's rrdb
@@ -52,8 +58,15 @@ Phases (any failure raises, so the exit code is non-zero):
      ``fused_add_salt_pepper_noise`` on the DIV2K HR frame, with their
      launch counts (these functions are the kernels' only entry);
   7. time each kernel, its plain version and the PyTorch calls computing
-     the same function, beside the least time the card could take.
-The line before the last holds the kernels' JSON record, the last line
+     the same function (kernel and library: device time per call, the
+     calls queued behind a sleep kernel, the kernel's time per call from
+     Python beside it; plain versions: CUDA events),
+     beside the least time the card could take: A and
+     B in f32 and bf16 at down0_conv2 and up0_conv against one cuDNN call
+     each (F.conv2d, conv2d_weight; f32 without TF32), with f32's FMA
+     and 3xTF32 bounds both named (the bound is the lower).
+The line before the last holds the kernels' JSON record (each kernel with
+its design and its launches per main path), the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 
@@ -70,10 +83,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM peaks: f32 FMA and bf16 tensor cores (data sheet); 32-bit
+# H100 SXM peaks: f32 FMA, bf16 and TF32 tensor cores (data sheet); 32-bit
 # integer instructions, 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white
 # paper), the lowest rate the Philox work of kernels D and E issues at
-RATE = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 16.7e12}
+RATE = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int32: 16.7e12,
+        "tf32": 495e12}
 MEM_BW = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # TF32 keeps 11 significant bits of each cuDNN conv input (unit roundoff
@@ -81,6 +95,13 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # TF32, is held to the f64 net at four times that
 TF32_TOL = 2e-3
 C = 128  # DIP skip-net width
+# profiler names of kernel A (fwd_bf16_kernel<N, R>, fwd_tf32_kernel) and
+# kernel B (wgrad_bf16_kernel, wgrad_tf32_kernel), which live in an
+# anonymous namespace (cuDNN has wgrad_* kernels of its own)
+KERNEL_A, KERNEL_B = "namespace)::fwd_", "namespace)::wgrad_"
+# kernel launches of one DIP training iteration: 10 fused convs forward,
+# their 10 dgrads (kernel A) and 10 wgrads (kernel B)
+DIP_ITER_LAUNCHES = {KERNEL_A: 20, KERNEL_B: 10}
 LR_RRDB = (270, 480)  # bench.py's rrdb workload: a 1080 x 1920 frame at x4
 LR_GAN = (128, 128)  # bench.py's gan_eval workload: 128^2 -> 1024^2 at x8
 LR_RAGGED = (84, 127)  # a 2040 x 1356 DIV2K image's 255 x 169 x8 LR, halved
@@ -367,15 +388,25 @@ def print_top(kernels, iters, top, unit):
 def profile_iteration(dtype, fusion, iters=3, top=12):
     """Phase 3c: time per iteration (CUDA events, profiler off), then a
     torch.profiler window: device kernel time per iteration, the device's
-    idle share, and the kernels that take the most device time."""
+    idle share, and the kernels that take the most device time. With the
+    kernels (fusion 'auto') the window must record all of their launches
+    (DIP_ITER_LAUNCHES per iteration)."""
     step = dip_step(dtype, fusion)
     ms = time_ms(step, 30, warmup=5)
-    kernels, busy = profile_window(step, iters)
+    fused = fusion == "auto"
+    kernels, busy = profile_window(step, iters,
+                                   expect=DIP_ITER_LAUNCHES if fused else None)
     ops = sum(e.count for e in kernels) // iters
+    split = ""
+    if fused:
+        a, b = (sum(e.self_device_time_total for e in kernels if k in e.key)
+                / iters / 1e3 for k in (KERNEL_A, KERNEL_B))
+        split = (f"; kernel A {a:.3f} ms, kernel B {b:.3f} ms (all their "
+                 f"launches recorded)")
     print(f"DIP iteration at 512^2 x8, full width, {dtype}, conv_fusion="
           f"{fusion}: {ms:.3f} ms per iteration (CUDA events); kernels "
           f"busy {busy:.3f} ms of it, idle share {1 - busy / ms:.3f}, "
-          f"{ops} device operations per iteration")
+          f"{ops} device operations per iteration{split}")
     print_top(kernels, iters, top, "iter")
 
 
@@ -519,11 +550,11 @@ def run_rrdb_main_path(dtype, top=12):
         ms = time_ms(lambda: net(lr), 3, warmup=1)
         kernels, busy = profile_window(
             lambda: net(lr), 1,
-            expect={"::dense_block_kernel<": 69, "::fwd_kernel<": 4})
+            expect={"::dense_block_kernel<": 69, KERNEL_A: 4})
         off = rrdb_net(dtype, "off")
         ms_off = time_ms(lambda: off(lr), 3, warmup=1)
         del off
-    groups = {"kernel C": "dense_block_kernel", "kernel A": "fwd_kernel"}
+    groups = {"kernel C": "dense_block_kernel", "kernel A": KERNEL_A}
     split = {g: sum(e.self_device_time_total for e in kernels
                     if key in e.key) / 1e3 for g, key in groups.items()}
     split["other device ops"] = busy - sum(split.values())
@@ -552,23 +583,41 @@ def time_ms(fn, n=20, warmup=3):
 
 
 def bound(flops, nbytes, dtype):
-    t_ops, t_bytes = flops / RATE[dtype], nbytes / MEM_BW
+    """(ms, 'operations' or 'bytes', named op bounds in ms): the larger of
+    the operations over their peak and the bytes over the memory rate. f32
+    work has two peaks, the FMA units and 3xTF32 on the tensor cores (three
+    TF32 products per f32 product, 1e-6 accurate); the least time takes the
+    faster, and both are named."""
+    named = {}
+    t_ops = flops / RATE[dtype]
+    if dtype == torch.float32:
+        named = {"bound_fma_ms": t_ops * 1e3,
+                 "bound_3xtf32_ms": 3 * flops / RATE["tf32"] * 1e3}
+        t_ops = min(t_ops, 3 * flops / RATE["tf32"])
+    t_bytes = nbytes / MEM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+                                       else "bytes"), named
 
 
 def measure(label, kern, plain, lib, flops, nbytes, dtype):
-    """Kernel, plain version and library times (CUDA events, 20 calls after
-    3 warm-up ones) beside the bound; ``lib`` may be None."""
-    ms, plain_ms = time_ms(kern), time_ms(plain)
-    lib_ms = None if lib is None else time_ms(lib)
-    bms, by = bound(flops, nbytes, dtype)
+    """Kernel, plain version and library times beside the bound; ``lib``
+    may be None. The kernel and the library call: device time per call,
+    20 calls queued behind a sleep kernel (device_ms, after 3 warm-up
+    ones), so that a call shorter than its Python launch path is timed by
+    the card and not by the host; beside it the kernel's time per call
+    from Python. The plain version, dozens of launches a call that would
+    fill the launch queue behind the sleep: CUDA events over 20 calls."""
+    ms, plain_ms = device_ms(kern, 20), time_ms(plain)
+    lib_ms = None if lib is None else device_ms(lib, 20)
+    call_ms = time_ms(kern)
+    bms, by, named = bound(flops, nbytes, dtype)
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    print(f"time {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib_txt}, bound {bms:.4f} ms ({by}), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by)
+    named_txt = "".join(f", {k[6:-3]} {v:.4f} ms" for k, v in named.items())
+    print(f"time {label}: kernel {ms:.4f} ms ({call_ms:.4f} ms per call from "
+          f"Python), plain {plain_ms:.4f} ms, library {lib_txt}, bound "
+          f"{bms:.4f} ms ({by}{named_txt}), {flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, **named)
 
 
 # ------------------------------------------------------------------ SRGAN
@@ -771,9 +820,9 @@ def time_generator(dtype, iters=3, top=12):
                     f"({mpix / ms_ieee * 1e3:.3f} MPix/s)")
         kernels, busy = profile_window(
             lambda: generator_forward(net, lr, cfg), iters,
-            expect={"::fwd_kernel<": 36})
+            expect={KERNEL_A: 36})
     split = {"kernel A": sum(e.self_device_time_total for e in kernels
-                             if "fwd_kernel" in e.key) / iters / 1e3,
+                             if KERNEL_A in e.key) / iters / 1e3,
              "glue (PyTorch elementwise, copies)": sum(
                  e.self_device_time_total for e in kernels
                  if "at::native" in e.key or "Memcpy" in e.key
@@ -967,7 +1016,7 @@ def time_degrade_kernels():
         plain_ms = profile_window(plain, 5)[1]
         chain_ms = profile_window(chain, 5)[1]
         ops = PHILOX_OPS * calls
-        bms, by = bound(ops, 2 * 4 * n, torch.int32)
+        bms, by, _ = bound(ops, 2 * 4 * n, torch.int32)
         print(f"time {name} at {DIV2K_HR + (3,)} f32 (device times): "
               f"kernel {ms:.4f} ms ({call_ms:.4f} ms per call from Python), "
               f"plain {plain_ms:.4f} ms, eager PyTorch chain "
@@ -1016,45 +1065,50 @@ def time_srgan_kernel_a():
 
 
 def time_kernels(fc, name, size, act, has_base):
-    """Phase 5 at one DIP shape, f32: kernel, plain, library and bound."""
+    """Phase 7 at one DIP shape, in f32 and bf16: kernels A and B, their
+    plain versions and one cuDNN call each (F.conv2d, conv2d_weight; f32
+    without TF32), beside the bound. Returns {kernel: {dtype: row}}."""
     torch.backends.cudnn.allow_tf32 = False
-    dtype = torch.float32
-    o = operands(size, act, has_base, dtype,
-                 torch.Generator(device="cuda").manual_seed(2))
-    x, w, es, eb, base, g = (o[k] for k in ("x", "w", "es", "eb", "base",
-                                            "g"))
-    isz = x.element_size()
     flops = 2 * 9 * C * C * size * size
-    act_bytes = size * size * C * isz
-    xn = x.permute(0, 3, 1, 2)
-    gn = g.permute(0, 3, 1, 2)
-    w_oihw = w.permute(3, 2, 0, 1).contiguous()
-    rows = {}
-    ops = {
-        "fused_conv3x3_fwd": (
-            lambda: fc.fused_conv3x3_fwd(x, w, es, eb, base, act=act,
-                                         reflect=True, stats=True),
-            lambda: fc.fused_conv3x3_fwd_reference(x, w, es, eb, base,
-                                                   act=act, reflect=True,
-                                                   stats=True),
-            lambda: F.conv2d(xn, w_oihw, padding=1),
-            # x, base read; y written; w, es/eb read; stats written
-            act_bytes * (3 if has_base else 2) + w.numel() * isz
-            + 2 * C * 4 + 2 * C * 4),
-        "fused_conv3x3_wgrad": (
-            lambda: fc.fused_conv3x3_wgrad(x, g, es, eb, act=act,
-                                           reflect=True),
-            lambda: fc.fused_conv3x3_wgrad_reference(x, g, es, eb, act=act,
-                                                     reflect=True),
-            lambda: torch.nn.grad.conv2d_weight(xn, w_oihw.shape, gn,
-                                                padding=1),
-            # x, G, es/eb read; dw (f32) written
-            act_bytes * 2 + 2 * C * 4 + w.numel() * 4),
-    }
-    for kname, (kern, plain, lib, nbytes) in ops.items():
-        rows[kname] = measure(f"{kname} at {name} ({size}^2, {C}->{C}, f32)",
-                              kern, plain, lib, flops, nbytes, dtype)
-        rows[kname]["shape"] = f"{name}: (1, {size}, {size}, {C}) -> {C}"
+    rows = {"fused_conv3x3_fwd": {}, "fused_conv3x3_wgrad": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        o = operands(size, act, has_base, dtype,
+                     torch.Generator(device="cuda").manual_seed(2))
+        x, w, es, eb, base, g = (o[k] for k in ("x", "w", "es", "eb", "base",
+                                                "g"))
+        isz = x.element_size()
+        act_bytes = size * size * C * isz
+        xn = x.permute(0, 3, 1, 2)
+        gn = g.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        ops = {
+            "fused_conv3x3_fwd": (
+                lambda: fc.fused_conv3x3_fwd(x, w, es, eb, base, act=act,
+                                             reflect=True, stats=True),
+                lambda: fc.fused_conv3x3_fwd_reference(
+                    x, w, es, eb, base, act=act, reflect=True, stats=True),
+                lambda: F.conv2d(xn, w_oihw, padding=1),
+                # x, base read; y written; w, es/eb read; stats written
+                act_bytes * (3 if has_base else 2) + w.numel() * isz
+                + 2 * C * 4 + 2 * C * 4),
+            "fused_conv3x3_wgrad": (
+                lambda: fc.fused_conv3x3_wgrad(x, g, es, eb, act=act,
+                                               reflect=True),
+                lambda: fc.fused_conv3x3_wgrad_reference(
+                    x, g, es, eb, act=act, reflect=True),
+                lambda: torch.nn.grad.conv2d_weight(xn, w_oihw.shape, gn,
+                                                    padding=1),
+                # x, G, es/eb read; dw (f32) written
+                act_bytes * 2 + 2 * C * 4 + w.numel() * 4),
+        }
+        for kname, (kern, plain, lib, nbytes) in ops.items():
+            row = measure(f"{kname} at {name} ({size}^2, {C}->{C}, "
+                          f"{str(dtype)[6:]})", kern, plain, lib, flops,
+                          nbytes, dtype)
+            row["shape"] = (f"{name}: (1, {size}, {size}, {C}) -> {C}, "
+                            f"{str(dtype)[6:]}")
+            rows[kname][dtype] = row
+        del x, w, base, g, xn, gn, o
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -1177,8 +1231,12 @@ def main() -> int:
     paths["degrade"] = run_degrade_path()
     print("phase 6: degradation path ran through kernels D and E")
 
-    time_kernels(fc, "down0_conv2", 256, "leaky_relu", False)
-    timed = time_kernels(fc, "up0_conv", 512, None, True)
+    down = time_kernels(fc, "down0_conv2", 256, "leaky_relu", False)
+    up = time_kernels(fc, "up0_conv", 512, None, True)
+    timed = {k: dict(up[k][torch.float32],
+                     bfloat16=up[k][torch.bfloat16],
+                     down0_conv2={str(d)[6:]: r for d, r in down[k].items()})
+             for k in up}
     rrdb_timed = time_rrdb_kernels()
     timed["dense_block"] = dict(
         rrdb_timed[("dense_block", torch.float32)],
@@ -1208,9 +1266,21 @@ def main() -> int:
                "dense_block": "tpusr_torch/csrc/dense_block.cu",
                "fused_add_gaussian_noise": "tpusr_torch/csrc/degrade.cu",
                "fused_add_salt_pepper_noise": "tpusr_torch/csrc/degrade.cu"}
+    designs = {
+        "fused_conv3x3_fwd": "wgmma bf16 (m64nNk16, N 64/128, 16x16-pixel "
+                             "tile, 9 taps as descriptors into one staged "
+                             "window) / 3xTF32 mma.sync f32",
+        "fused_conv3x3_wgrad": "wgmma bf16 (dw_t = window^T G, one warpgroup "
+                               "per kernel row, split-K row slices) / 3xTF32 "
+                               "mma.sync f32",
+        "dense_block": "f32 FMA (bf16 loads), 8x8 tile with halo recompute",
+        "fused_add_gaussian_noise": "Philox4x32-10 in the kernel, one thread "
+                                    "per element pair",
+        "fused_add_salt_pepper_noise": "Philox4x32-10 in the kernel, one "
+                                       "thread per pixel"}
     record = {"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
-             launches=sum(c[k] for c in paths.values()),
+             design=designs[k], launches=sum(c[k] for c in paths.values()),
              launches_by_path={p: c[k] for p, c in paths.items()},
              max_abs_err=worst[k], **timed[k]) for k in replaces]}
     print(card)

@@ -4,7 +4,12 @@ The port's ``fused_conv3x3`` runs on the CPU through the plain versions of
 its two kernels, inside the same autograd Function (hand-built backward)
 that drives the CUDA kernels on the card. The JAX side runs as its own
 tests run it: ``fused_conv3x3(..., interpret=True)`` and ``_fused_ref``.
+The kernels' launch geometry (stats partials per tile, split-K slices)
+is held here too, against the tile constants of the CUDA source.
 """
+
+import os
+import re
 
 import numpy as np
 import jax
@@ -152,3 +157,83 @@ def test_wgrad_reference_matches_autograd(dtype):
     assert y.dtype == st.dtype == dw.dtype == dtype
     np.testing.assert_allclose(dw.numpy(), w.grad.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------------------ launch geometry
+def _csrc_constants():
+    """The `constexpr int NAME = value;` lines of the kernels' source."""
+    path = os.path.join(os.path.dirname(fused_conv.__file__), os.pardir,
+                        "csrc", "fused_conv3x3.cu")
+    with open(path) as f:
+        src = f.read()
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_tile_constants_match_the_kernel_source():
+    """The wrapper sizes the stats partials and the split-K blocks from
+    its own copy of the tiles; the kernels index with the source's."""
+    c = _csrc_constants()
+    assert (c["TH"], c["TW"]) == (fused_conv.TH, fused_conv.TW)
+    assert (c["WG_CI"], c["WG_CO"]) == (fused_conv.WG_CI, fused_conv.WG_CO)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (15, 17), (16, 16),
+                                 (33, 70), (270, 480), (512, 512)])
+def test_stats_partials_cover_every_pixel_once(n, h, w):
+    """Kernel A's partial index n * tiles + tile, with the tile's origin as
+    the kernel derives it from blockIdx.x: every partial is written by one
+    block whose tile holds a pixel, and every pixel lies in one tile."""
+    th, tw = fused_conv.TH, fused_conv.TW
+    tiles = fused_conv.stats_tiles(h, w)
+    tiles_w = -(-w // tw)
+    cover = np.zeros((n, h, w), np.int64)
+    written = np.zeros(n * tiles, np.int64)
+    for img in range(n):
+        for t in range(tiles):
+            h0, w0 = (t // tiles_w) * th, (t % tiles_w) * tw
+            assert h0 < h and w0 < w
+            cover[img, h0:h0 + th, w0:w0 + tw] += 1
+            written[img * tiles + t] += 1
+    assert (cover == 1).all() and (written == 1).all()
+
+
+@pytest.mark.parametrize("max_pixels", [None, 4096])
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 512, 512, 128, 128), (1, 16, 16, 128, 128), (2, 19, 35, 64, 64),
+    (3, 7, 9, 5, 6), (1, 2, 5000, 3, 64), (4, 1, 3, 132, 128),
+    (1, 1080, 1920, 64, 64)])
+def test_wgrad_slices_cover_every_row_once(n, h, w, cin, cout, sms,
+                                           max_pixels):
+    """Kernel B's split-K: slice s covers rows [j * rows, min((j + 1) *
+    rows, H)) of image s // per_img, j = s % per_img, as the kernel reads
+    it. No slice is empty, none crosses an image, every row is in one; the
+    grid stays about one block per SM unless a slice would pass
+    max_pixels, and none does but for a single row."""
+    rows, per_img = fused_conv.wgrad_split(n, h, w, cin, cout, sms,
+                                           max_pixels)
+    cover = np.zeros((n, h), np.int64)
+    for s in range(n * per_img):
+        img, j = divmod(s, per_img)
+        hs, he = j * rows, min((j + 1) * rows, h)
+        assert hs < he
+        cover[img, hs:he] += 1
+    assert (cover == 1).all()
+    tiles = -(-cin // fused_conv.WG_CI) * -(-cout // fused_conv.WG_CO)
+    if max_pixels is None or rows * w < max_pixels - w:
+        assert n * per_img * tiles <= sms + n * tiles
+    if max_pixels is not None:
+        assert rows == 1 or rows * w <= max_pixels
+
+
+@pytest.mark.parametrize("dtype,max_pixels,inputs", [
+    ("bfloat16", None, 2 * 512 * 512 * 128 * 2),
+    ("float32", fused_conv.WGRAD_F32_MAX_PIXELS, 2 * 512 * 512 * 128 * 4)])
+def test_wgrad_partials_stay_small_at_up0(dtype, max_pixels, inputs):
+    """At DIP's up0_conv (512^2, 128 -> 128) the dw partials stay well under
+    the bytes of the kernel's inputs (x and G: 134 MB in bf16)."""
+    rows, per_img = fused_conv.wgrad_split(1, 512, 512, 128, 128, 132,
+                                           max_pixels)
+    assert per_img * 9 * 128 * 128 * 4 < inputs / 4

@@ -65,6 +65,73 @@ def test_kernels_match_plain_versions(gen, dtype, tol, shape, reflect):
             == before["fused_conv3x3_wgrad"] + 1)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 96, 128, 128),  # DIP up0-like: full width, whole tiles
+    (1, 13, 21, 24, 40),    # widths off the 8 and 16 grid, ragged tiles
+    (1, 9, 30, 3, 64),      # an RGB input
+    (2, 19, 35, 64, 64),    # N = 2 through the split-K wgrad, ragged
+])
+def test_tensor_core_kernels_at_path_and_odd_shapes(gen, dtype, tol, shape):
+    """Kernels A (forward with prologue, base and stats; dgrad) and B on the
+    tensor cores against their plain versions (f32 ones in f64)."""
+    n, h, w, cin, cout = shape
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+
+    x = rnd(n, h, w, cin).to(dtype)
+    wt = (rnd(3, 3, cin, cout) * 0.1).to(dtype)
+    es, eb = rnd(cin).abs() + 0.5, rnd(cin) * 0.1
+    base, g = rnd(n, h, w, cout).to(dtype), rnd(n, h, w, cout).to(dtype)
+    f64 = dtype == torch.float32
+    xp, wp, bp, gp = (t.double() if f64 else t for t in (x, wt, base, g))
+    y, st = fc.fused_conv3x3_fwd(x, wt, es, eb, base, act="leaky_relu",
+                                 reflect=True, stats=True)
+    yr, sr = fc.fused_conv3x3_fwd_reference(xp, wp, es, eb, bp,
+                                            act="leaky_relu", reflect=True,
+                                            stats=True)
+    w_rot = wt.flip(0, 1).transpose(2, 3).contiguous()
+    d, _ = fc.fused_conv3x3_fwd(g, w_rot, reflect=False)
+    dr, _ = fc.fused_conv3x3_fwd_reference(gp, wp.flip(0, 1).transpose(2, 3),
+                                           reflect=False)
+    dw = fc.fused_conv3x3_wgrad(x, g, es, eb, act="leaky_relu", reflect=True)
+    dwr = fc.fused_conv3x3_wgrad_reference(xp, gp, es, eb, act="leaky_relu",
+                                           reflect=True)
+    torch.cuda.synchronize()
+    errs = {"fwd": _rel(y, yr), "stats": _rel(st, sr), "dgrad": _rel(d, dr),
+            "wgrad": _rel(dw, dwr)}
+    assert y.shape == (n, h, w, cout) and dw.shape == (3, 3, cin, cout)
+    assert all(e < tol for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 96, 128, 128),
+                                   (2, 19, 35, 64, 64)])
+def test_bf16_kernels_accumulate_in_f32(gen, shape):
+    """bf16 inputs without a prologue are exact in f64, so against the f64
+    plain version the forward is off by its one bf16 rounding of y
+    (2^-9 relative), and the f32 outputs (stats, dw) by f32 accumulation
+    alone."""
+    n, h, w, cin, cout = shape
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda")
+          * 0.1).bfloat16()
+    g = torch.randn(n, h, w, cout, generator=gen, device="cuda").bfloat16()
+    y, st = fc.fused_conv3x3_fwd(x, wt, reflect=True, stats=True)
+    yr, sr = fc.fused_conv3x3_fwd_reference(x.double(), wt.double(),
+                                            reflect=True, stats=True)
+    dw = fc.fused_conv3x3_wgrad(x, g, reflect=False)
+    dwr = fc.fused_conv3x3_wgrad_reference(x.double(), g.double(),
+                                           reflect=False)
+    torch.cuda.synchronize()
+    errs = {"fwd": _rel(y.double(), yr), "stats": _rel(st, sr),
+            "wgrad": _rel(dw, dwr)}
+    print(f"bf16 kernels against f64 at {shape}: {errs}")
+    assert errs["fwd"] < 4e-3 and errs["stats"] < 1e-4, errs
+    assert errs["wgrad"] < 1e-4, errs
+
+
 def test_autograd_on_the_card_matches_the_cpu(gen):
     """The Function's backward (dgrad + wgrad kernels, reflect folds,
     prologue backward) on the card against the same Function on the CPU."""
@@ -188,6 +255,23 @@ def test_kernel_a_at_the_srgan_shapes(gen, dtype, tol, shape):
     torch.cuda.synchronize()
     assert y.shape == (n, h, w, cout) and _rel(y, yr) < tol
     assert fc.LAUNCHES["fused_conv3x3_fwd"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_a_at_the_rrdb_shape(gen, dtype, tol):
+    """RRDBNet's trunk and upsampling convs: zero pad, no prologue, 64 ->
+    64, on a 270 x 480 frame (a ragged last row of tiles)."""
+    x = torch.randn(1, 270, 480, 64, generator=gen, device="cuda").to(dtype)
+    wt = ((torch.rand(3, 3, 64, 64, generator=gen, device="cuda") * 2 - 1)
+          / 24).to(dtype)
+    y, _ = fc.fused_conv3x3_fwd(x, wt, reflect=False)
+    f64 = dtype == torch.float32
+    yr, _ = fc.fused_conv3x3_fwd_reference(x.double() if f64 else x,
+                                           wt.double() if f64 else wt,
+                                           reflect=False)
+    torch.cuda.synchronize()
+    assert _rel(y, yr) < tol
 
 
 def check_gaussian_against_plain(got, want):

@@ -11,12 +11,15 @@ Layout: the public functions take NHWC activations and HWIO weights, the
 JAX package's layout. A channels_last NCHW tensor permuted to NHWC is such
 a tensor, with no copy.
 
-Kernels (``tpusr_torch/csrc/fused_conv3x3.cu``, CUDA C++ for sm_90a):
+Kernels (``tpusr_torch/csrc/fused_conv3x3.cu``, CUDA C++ for sm_90a, on
+the tensor cores: wgmma in bf16, 3xTF32 mma.sync in f32):
   * A ``fused_conv3x3_fwd`` — the forward, and dgrad (kernel A over the
     output cotangent with rotated, transposed weights, zero pad, no
     prologue, no stats);
   * B ``fused_conv3x3_wgrad`` — the weight gradient, recomputing the same
     halo and prologue from x.
+Their launch geometry (stats partials per tile, split-K row slices) is in
+plain functions here, with the tile constants the source also holds.
 Each wrapper launches its kernel for a CUDA tensor and raises on what the
 kernel does not take; for a CPU tensor it runs the plain PyTorch version
 beside it. ``LAUNCHES`` counts kernel launches, so a run can show that its
@@ -40,10 +43,42 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = (None, "leaky_relu")
 _SOURCE = "fused_conv3x3.cu"
 
+# The kernels' tiles, as the constexprs of fused_conv3x3.cu hold them
+TH, TW = 16, 16  # kernel A's output tile: one stats partial each
+WG_CI, WG_CO = 64, 64  # kernel B's block: input x output channels
+# f32 kernel B: pixels summed into one partial at most. The tensor cores'
+# f32 accumulation loses about 2^-24 per product added, so the error of a
+# partial grows with its length (at 512^2, 128 -> 128: 5.3e-5 of f64 with
+# 8192 pixels a slice, 1.5e-5 with 2048); the slices hold it well inside
+# the f32 kernels' 1e-4.
+WGRAD_F32_MAX_PIXELS = 4096
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------ launch geometry
+def stats_tiles(h, w):
+    """Kernel A's stats partials per image: one per TH x TW output tile."""
+    return -(-h // TH) * -(-w // TW)
+
+
+def wgrad_split(n, h, w, cin, cout, sms, max_pixels=None):
+    """Kernel B's split-K over rows: (rows per slice, slices per image).
+
+    About one block per SM in all, and no slice longer than ``max_pixels``
+    (rows x w, at least one row); each slice is a run of rows of one image
+    and writes its own partial dw (slices x 9 x Cin x Cout f32), which one
+    torch.sum reduces."""
+    tiles = -(-cin // WG_CI) * -(-cout // WG_CO)
+    want = -(-sms // tiles)
+    per_img = max(1, min(h, -(-want // n)))
+    rows = -(-h // per_img)
+    if max_pixels is not None:
+        rows = max(1, min(rows, max_pixels // w))
+    return rows, -(-h // rows)
 
 
 # ------------------------------------------------------------- plain versions
@@ -152,9 +187,8 @@ def _fwd_cuda(x, w, es, eb, base, act, reflect, stats):
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     part = None
     if stats:
-        tiles = -(-h // 8) * -(-wd // 16)  # kernel A's 8 x 16 pixel tiles
-        part = torch.empty((n * tiles, 2, cout), dtype=torch.float32,
-                           device=x.device)
+        part = torch.empty((n * stats_tiles(h, wd), 2, cout),
+                           dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().tpusr_conv3x3_fwd(
         x.device.index or 0, _DTYPES[x.dtype], _ptr(x), _ptr(w), _ptr(es),
@@ -174,20 +208,16 @@ def _wgrad_cuda(x, g, es, eb, act, reflect):
            and tuple(g.shape[:3]) == (n, h, wd) and g.is_contiguous(),
            "g must be contiguous (N,H,W,Cout) in x's dtype")
     cout = g.shape[3]
-    # split-K over rows: about four blocks per SM in all, each owning a
-    # slice of rows and writing its own partial dw
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per_slice = -(-cout // 64) * -(-cin // 16)
-    want = max(1, -(-4 * sms // per_slice))
-    rows = n * h
-    rows_per_slice = -(-rows // min(rows, want))
-    nslices = -(-rows // rows_per_slice)
-    part = torch.empty((nslices, 9, cin, cout), dtype=torch.float32,
+    rows, per_img = wgrad_split(
+        n, h, wd, cin, cout, sms,
+        WGRAD_F32_MAX_PIXELS if x.dtype == torch.float32 else None)
+    part = torch.empty((n * per_img, 9, cin, cout), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().tpusr_conv3x3_wgrad(
         x.device.index or 0, _DTYPES[x.dtype], _ptr(x), _ptr(g), _ptr(es),
-        _ptr(eb), _ptr(part), n, h, wd, cin, cout, rows_per_slice, nslices,
+        _ptr(eb), _ptr(part), n, h, wd, cin, cout, rows, per_img,
         int(es is not None), int(act == "leaky_relu"), int(reflect),
         ctypes.c_void_p(stream))
     if rc != 0:
