@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Kernels A and B run on the tensor cores: wgmma in bf16 and 3xTF32
+Kernels A, B and C run on the tensor cores: wgmma in bf16 and 3xTF32
 mma.sync in f32 (three TF32 products per f32 product, so the f32 gates
-below hold unchanged); C, D and E as before.
+below hold unchanged); D and E as before.
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build the CUDA kernels from tpusr_torch/csrc (one nvcc per source, in
@@ -14,7 +14,8 @@ Phases (any failure raises, so the exit code is non-zero):
      shapes: f32 kernels against the plain version in f64 (max relative
      error 1e-4), bf16 ones against it in bf16 (2e-2). A and B at the DIP
      shapes; C (tpusr/ops/pallas_dense.py:103) at the RRDB trunk's
-     (1, 270, 480, 64) and at ragged shapes; A in the RRDB configuration
+     (1, 270, 480, 64) and at ragged shapes on each side of its tiles'
+     edges (16 x 16 in bf16, 8 x 8 in f32); A in the RRDB configuration
      (zero pad, no prologue, 64 -> 64) at 270 x 480, 540 x 960 and
      1080 x 1920; A in the SRGAN configuration (zero pad, no prologue,
      64 -> 64 and 64 -> 256) at every shape the x8 eval of a 128^2 and of
@@ -99,10 +100,16 @@ C = 128  # DIP skip-net width
 # kernel B (wgrad_bf16_kernel, wgrad_tf32_kernel), which live in an
 # anonymous namespace (cuDNN has wgrad_* kernels of its own)
 KERNEL_A, KERNEL_B = "namespace)::fwd_", "namespace)::wgrad_"
+# kernel C's profiler names: dense_block_kernel_bf16, dense_block_kernel_f32
+KERNEL_C = "namespace)::dense_block_kernel_"
 # kernel launches of one DIP training iteration: 10 fused convs forward,
 # their 10 dgrads (kernel A) and 10 wgrads (kernel B)
 DIP_ITER_LAUNCHES = {KERNEL_A: 20, KERNEL_B: 10}
 LR_RRDB = (270, 480)  # bench.py's rrdb workload: a 1080 x 1920 frame at x4
+# kernel C at sides on each side of its tiles' edges: 7, 8, 9 and 19 (the
+# f32 tile of 8) and 15, 16, 17 and 35 (the bf16 tile of 16), N = 2
+DENSE_EDGE_SHAPES = ((2, 7, 9), (2, 8, 19), (2, 15, 16), (2, 17, 35),
+                     (1, 35, 15), (1, 1, 1), (1, 40, 3))
 LR_GAN = (128, 128)  # bench.py's gan_eval workload: 128^2 -> 1024^2 at x8
 LR_RAGGED = (84, 127)  # a 2040 x 1356 DIV2K image's 255 x 169 x8 LR, halved
 DIV2K_HR = (1356, 2040)  # a DIV2K HR frame, H x W
@@ -447,7 +454,8 @@ def check_rrdb_kernels():
             def plain(t):  # the plain side's operand: f32 ones in f64
                 return t.double() if f32 else t
 
-            for shape in ((1, h, w), (1, 7, 9), (1, 13, 70), (2, 16, 20)):
+            for shape in ((1, h, w), (1, 7, 9), (1, 13, 70), (2, 16, 20),
+                          *DENSE_EDGE_SHAPES):
                 x, ks, bs = rrdb_operands(shape, dtype, gen)
                 y = db.dense_block(x, ks, bs)
                 yr = db.dense_block_reference(plain(x), [plain(k) for k in ks],
@@ -463,7 +471,7 @@ def check_rrdb_kernels():
                     worst["dense_block"] = max(worst["dense_block"],
                                                abs_err(y, yr))
             # trunk_conv, upconv1, upconv2 and conv_hr: 270 and 540 rows
-            # leave a ragged last row of 8 x 16 tiles
+            # leave a ragged last row of kernel A's 16 x 16 tiles
             for scale in (1, 2, 4):
                 x = torch.randn(1, scale * h, scale * w, 64, generator=gen,
                                 device="cuda").to(dtype)
@@ -503,8 +511,8 @@ def check_rrdb_net():
     torch.backends.cudnn.allow_tf32 = False
     nets = {"auto": rrdb_net(None, "auto"), "off": rrdb_net(None, "off"),
             "off_f64": rrdb_net(None, "off").double()}
-    # 27 x 45, 54 x 90, 108 x 180: no side a multiple of kernel A's 8 x 16
-    # tile or kernel C's 8 x 8 one
+    # 27 x 45, 54 x 90, 108 x 180: no side a multiple of kernel A's 16 x 16
+    # tile or of kernel C's (16 x 16 in bf16, 8 x 8 in f32)
     lr = torch.rand(1, 3, 27, 45, generator=torch.Generator().manual_seed(1))
     outs = {}
     with torch.inference_mode():
@@ -550,11 +558,11 @@ def run_rrdb_main_path(dtype, top=12):
         ms = time_ms(lambda: net(lr), 3, warmup=1)
         kernels, busy = profile_window(
             lambda: net(lr), 1,
-            expect={"::dense_block_kernel<": 69, KERNEL_A: 4})
+            expect={KERNEL_C: 69, KERNEL_A: 4})
         off = rrdb_net(dtype, "off")
         ms_off = time_ms(lambda: off(lr), 3, warmup=1)
         del off
-    groups = {"kernel C": "dense_block_kernel", "kernel A": KERNEL_A}
+    groups = {"kernel C": KERNEL_C, "kernel A": KERNEL_A}
     split = {g: sum(e.self_device_time_total for e in kernels
                     if key in e.key) / 1e3 for g, key in groups.items()}
     split["other device ops"] = busy - sum(split.values())
@@ -1114,10 +1122,13 @@ def time_kernels(fc, name, size, act, has_base):
 
 
 def time_rrdb_kernels():
-    """Phase 5, RRDB, in f32 and bf16: kernel C at (1, 270, 480, 64), with
+    """Phase 7, RRDB, in f32 and bf16: kernel C at (1, 270, 480, 64), with
     the five cuDNN convs of one block as its library time (no single
-    PyTorch call computes a dense block); kernel A at 1080 x 1920, 64 ->
-    64, zero pad, against one cuDNN conv."""
+    PyTorch call computes a dense block) and its recompute factor; kernel
+    A at 1080 x 1920, 64 -> 64, zero pad, against one cuDNN conv. Kernel
+    C's operands are made outside inference mode, as a network's
+    parameters are, so its packed weights are cached as on the main path
+    (inference tensors have no version and are packed on every call)."""
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
 
@@ -1128,7 +1139,8 @@ def time_rrdb_kernels():
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
-            x, ks, bs = rrdb_operands((1, h, w), dtype, gen)
+            with torch.inference_mode(False):
+                x, ks, bs = rrdb_operands((1, h, w), dtype, gen)
             parts = [x.permute(0, 3, 1, 2)] + [
                 torch.randn(1, h, w, db.GC, generator=gen, device="cuda")
                 .to(dtype).permute(0, 3, 1, 2) for _ in range(4)]
@@ -1136,7 +1148,7 @@ def time_rrdb_kernels():
             w_oihw = [k.to(dtype).permute(3, 2, 0, 1).contiguous()
                       for k in ks]
             b_lib = [b.to(dtype) for b in bs]
-            flops = 2 * 239_616 * h * w
+            flops = 2 * db.USEFUL_MACS * h * w
             # x read, y written, f32 kernels and biases read once
             nbytes = 2 * x.numel() * x.element_size() + 4 * sum(
                 t.numel() for t in ks + bs)
@@ -1145,11 +1157,15 @@ def time_rrdb_kernels():
                 lambda: db.dense_block(x, ks, bs),
                 lambda: db.dense_block_reference(x, ks, bs), None,
                 flops, nbytes, dtype)
+            row["recompute_factor"] = db.recompute_factor(dtype)
+            row["tile"] = "x".join(map(str, db.TILE[dtype]))
             row["library_five_convs_ms"] = time_ms(lambda: [
                 F.conv2d(c, k, b, padding=1)
                 for c, k, b in zip(cats, w_oihw, b_lib)])
             print(f"  five cuDNN convs of the block: "
-                  f"{row['library_five_convs_ms']:.4f} ms")
+                  f"{row['library_five_convs_ms']:.4f} ms; kernel C's "
+                  f"{row['tile']} tile computes "
+                  f"{row['recompute_factor']:.3f}x the useful work")
             rows[("dense_block", dtype)] = row
             del parts, cats
 
@@ -1273,7 +1289,11 @@ def main() -> int:
         "fused_conv3x3_wgrad": "wgmma bf16 (dw_t = window^T G, one warpgroup "
                                "per kernel row, split-K row slices) / 3xTF32 "
                                "mma.sync f32",
-        "dense_block": "f32 FMA (bf16 loads), 8x8 tile with halo recompute",
+        "dense_block": "wgmma bf16 (m64n32k16, A from ldmatrix registers, "
+                       "16x16 tile) / 3xTF32 mma.sync f32 (8x8 tile); "
+                       "halo recompute, every stage on its region, x and "
+                       "c1..c4 in shared memory in the dtype, packed "
+                       "weight units streamed by a cp.async ring",
         "fused_add_gaussian_noise": "Philox4x32-10 in the kernel, one thread "
                                     "per element pair",
         "fused_add_salt_pepper_noise": "Philox4x32-10 in the kernel, one "

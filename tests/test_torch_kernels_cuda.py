@@ -204,6 +204,42 @@ def test_dense_block_matches_plain_version(gen, dtype, tol, shape):
     assert db.LAUNCHES["dense_block"] == before + 1
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("edge", [(-1, 1), (0, 0), (1, 2), (2, -1)])
+def test_dense_block_at_the_tile_edges(gen, dtype, tol, edge):
+    """Kernel C at N = 2 and at sides on each side of its tile's edges
+    (tile - 1, tile, tile + 1 and 2 tile + 3 rows or columns, the tile of
+    the dtype): the regions' halos cross the image edges and the tiles'."""
+    from tpusr_torch.ops import dense_block as db
+
+    sides = {-1: lambda t: t - 1, 0: lambda t: t, 1: lambda t: t + 1,
+             2: lambda t: 2 * t + 3}
+    th, tw = db.TILE[dtype]
+    shape = (2, sides[edge[0]](th), sides[edge[1]](tw))
+    x, ks, bs = _dense_operands(gen, shape, dtype)
+    y = db.dense_block(x, ks, bs)
+    f64 = dtype == torch.float32
+    yr = db.dense_block_reference(x.double() if f64 else x,
+                                  [k.double() if f64 else k for k in ks],
+                                  [b.double() if f64 else b for b in bs])
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and _rel(y, yr) < tol, (shape, _rel(y, yr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_block_is_deterministic(gen, dtype):
+    """Two launches on the same input give bit-identical outputs (no
+    atomics; each output is written by one thread)."""
+    from tpusr_torch.ops import dense_block as db
+
+    x, ks, bs = _dense_operands(gen, (2, 37, 45), dtype)
+    a = db.dense_block(x, ks, bs)
+    b = db.dense_block(x, ks, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_dense_block_autograd_on_the_card_matches_the_cpu(gen):
     """Kernel C forward and the plain recompute backward on the card against
     the same Function on the CPU."""

@@ -12,11 +12,13 @@ At nf=64, nb=23, gc=32, x4 this is 16,697,987 parameters. Activations are
 NCHW tensors in channels_last memory, so the kernels see NHWC with no copy.
 
 ``fusion='auto'`` routes as the JAX package does: at nf 64 / gc 32 every
-dense block is one launch of kernel C
-(``ops/dense_block.py``); other widths run each dense-block conv through
-kernel A (``ops/fused_conv.py``, zero padding); trunk_conv, the upconvs and
-conv_hr go through kernel A. On a CPU tensor both kernels run their plain
-versions. ``fusion='off'`` is the unfused dataflow on ``F.conv2d``.
+dense block is one launch of kernel C (``ops/dense_block.py``: wgmma in
+bf16 on 16 x 16 tiles, 3xTF32 mma.sync in f32 on 8 x 8 tiles, c1..c4 in
+shared memory; its packed weights are cached against the parameters, so a
+frame launches nothing else for them); other widths run each dense-block
+conv through kernel A (``ops/fused_conv.py``, zero padding); trunk_conv,
+the upconvs and conv_hr go through kernel A. On a CPU tensor both kernels
+run their plain versions. ``fusion='off'`` is the unfused dataflow on ``F.conv2d``.
 """
 
 from __future__ import annotations
