@@ -19,7 +19,10 @@ Phases (any failure raises, so the exit code is non-zero):
      (zero pad, no prologue, 64 -> 64) at 270 x 480, 540 x 960 and
      1080 x 1920; A in the SRGAN configuration (zero pad, no prologue,
      64 -> 64 and 64 -> 256) at every shape the x8 eval of a 128^2 and of
-     an 84 x 127 LR image gives it, and at 85 x 127; D and E (tpusr/ops/pallas_degrade.py:
+     an 84 x 127 LR image gives it, and at 85 x 127; A (forward and dgrad,
+     Cin 256 in the dgrads of the 64 -> 256 convs) and B at every shape the
+     SRGAN training G gives them under g_fuse='train' (batch 8, 24^2, 48^2,
+     96^2); D and E (tpusr/ops/pallas_degrade.py:
      38, 52) at a DIV2K HR frame (1356 x 2040 x 3) and at 85 x 128, 7 x 9
      and 1 x 1, seeds 0, 1 and 2^31 - 1: salt and pepper exactly equal (it
      is a function of the Philox uniforms alone, so this holds the integer
@@ -39,8 +42,9 @@ Phases (any failure raises, so the exit code is non-zero):
      scale); then bench.py's rrdb
      workload, ``RRDBNet(scale=4, dtype=...).forward`` under
      inference_mode on a 270 x 480 LR frame (1080 x 1920 out), in f32 and
-     bf16: 69 kernel-C and 4 kernel-A launches per frame, the frame time
-     (fused and unfused) and a torch.profiler breakdown of one frame;
+     bf16: 69 kernel-C and 4 kernel-A launches per frame (the weight units
+     of all 69 blocks packed anew in each frame), the frame time (fused and
+     unfused) and a torch.profiler breakdown of one frame;
   5. SRGAN x8 eval: the full-width Generator (16 blocks, 1,697,175
      parameters, seeded weights and running statistics), fused in f32
      against unfused in f64 on a 24 x 40 input, with cuDNN's TF32 off (to
@@ -65,7 +69,23 @@ Phases (any failure raises, so the exit code is non-zero):
      beside the least time the card could take: A and
      B in f32 and bf16 at down0_conv2 and up0_conv against one cuDNN call
      each (F.conv2d, conv2d_weight; f32 without TF32), with f32's FMA
-     and 3xTF32 bounds both named (the bound is the lower).
+     and 3xTF32 bounds both named (the bound is the lower); A and B at the
+     SRGAN training shapes (batch 8) against cuDNN too;
+  8. SRGAN training at full width (16 blocks, x8, D at 192^2, batch 8):
+     the training G's forward and backward, fused (g_fuse 'train') in f32
+     against the unfused net in f64 on the 24^2 patch (output 1e-4,
+     parameter gradients 1e-3, TF32 off); then the main path,
+     ``tpusr_torch.cli.train_gan.run`` with --device cuda, in f32 and bf16,
+     on a synthetic DIV2K train tree of 16 images (96^2 LR after the
+     loader's /2, as bench.py), 2 pre-train and 1 fine-tune epochs, in
+     this process (default routing: no kernel launch) and in a subprocess
+     with TPUSR_G_FUSE=train (72 A and 36 B per step, 36 A per metrics
+     forward): files, finite losses, the pre-trained G.pth serving the
+     eval loader; then bench.py's gan_train workload (bf16 activations,
+     bf16 D state, MSE content, random uint8 stacks) in patches/s over 50
+     steps after 6, g_fuse eval and train, bf16 and f32, and a profiled
+     step of each (busy, idle share, operations; G forward, D update,
+     G update, Adam, glue and VGG19 content by windows of their own).
 The line before the last holds the kernels' JSON record (each kernel with
 its design and its launches per main path), the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -675,13 +695,13 @@ def check_srgan_kernels():
     return worst
 
 
-def srgan_generator(dtype, blocks=16):
+def srgan_generator(dtype, blocks=16, device="cuda"):
     """The full-width x8 Generator, weights from seed 0 and running
     statistics from seed 1 (mean U(-0.2, 0.2), var U(0.5, 1.5))."""
     from tpusr_torch.models.srgan import Generator
 
     g = Generator(factor=8, residual_blocks_count=blocks, dtype=dtype,
-                  device="cuda", generator=torch.Generator().manual_seed(0))
+                  device=device, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for name, buf in g.named_buffers():
@@ -1126,9 +1146,8 @@ def time_rrdb_kernels():
     the five cuDNN convs of one block as its library time (no single
     PyTorch call computes a dense block) and its recompute factor; kernel
     A at 1080 x 1920, 64 -> 64, zero pad, against one cuDNN conv. Kernel
-    C's operands are made outside inference mode, as a network's
-    parameters are, so its packed weights are cached as on the main path
-    (inference tensors have no version and are packed on every call)."""
+    C's weight units are packed once outside the timed calls, as
+    RRDBNet.forward packs them once per frame for all its blocks."""
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
 
@@ -1152,9 +1171,10 @@ def time_rrdb_kernels():
             # x read, y written, f32 kernels and biases read once
             nbytes = 2 * x.numel() * x.element_size() + 4 * sum(
                 t.numel() for t in ks + bs)
+            wp = db.packed_weights(ks, dtype)
             row = measure(
                 f"dense_block at (1, {h}, {w}, 64), {name}",
-                lambda: db.dense_block(x, ks, bs),
+                lambda: db.dense_block(x, ks, bs, wp),
                 lambda: db.dense_block_reference(x, ks, bs), None,
                 flops, nbytes, dtype)
             row["recompute_factor"] = db.recompute_factor(dtype)
@@ -1188,11 +1208,404 @@ def time_rrdb_kernels():
     return rows
 
 
+# ------------------------------------------------------------ SRGAN train
+TRAIN_B, TRAIN_HR, TRAIN_F = 8, 192, 8  # bench.py's gan_train workload
+TRAIN_LR = TRAIN_HR // TRAIN_F
+TRAIN_IMAGES, TRAIN_LR_SIDE = 16, 96  # bench.py:316: 16 images, 96^2 LR
+TRAIN_A_SHAPES = [  # (x shape, Cout) of the training G's fused convs
+    ((TRAIN_B, TRAIN_LR, TRAIN_LR, 64), 64),
+    ((TRAIN_B, TRAIN_LR, TRAIN_LR, 64), 256),
+    ((TRAIN_B, 2 * TRAIN_LR, 2 * TRAIN_LR, 64), 256),
+    ((TRAIN_B, 4 * TRAIN_LR, 4 * TRAIN_LR, 64), 256)]
+# one g_fuse='train' step: the 36 fused convs forward and their dgrads
+# (kernel A), their wgrads (kernel B); a metrics forward adds 36 A
+TRAIN_STEP_LAUNCHES = {KERNEL_A: 72, KERNEL_B: 36}
+TRAIN_CLI_STEPS = 3 * TRAIN_IMAGES // TRAIN_B  # 2 + 1 epochs of 2 steps
+
+
+def check_train_kernels():
+    """Phase 2, SRGAN training: kernel A forward, its dgrad (Cout -> 64,
+    Cin = 256 for the 64 -> 256 convs) and kernel B at every shape the
+    training G gives them under g_fuse='train' (batch 8, the 24^2 patch
+    and its x2 and x4 maps, zero pad, no prologue). Returns the largest
+    f32 abs error of each kernel."""
+    from tpusr_torch.ops import fused_conv as fc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"fused_conv3x3_fwd": 0.0, "fused_conv3x3_wgrad": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        for shape, cout in TRAIN_A_SHAPES:
+            n, h, w, cin = shape
+            x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            wt = ((torch.rand(3, 3, cin, cout, generator=gen, device="cuda")
+                   * 2 - 1) / 24).to(dtype)
+            g = torch.randn(n, h, w, cout, generator=gen,
+                            device="cuda").to(dtype)
+            xp, wp, gp = (t.double() if f32 else t for t in (x, wt, g))
+            w_rot = wt.flip(0, 1).transpose(2, 3).contiguous()
+            y, _ = fc.fused_conv3x3_fwd(x, wt, reflect=False)
+            d, _ = fc.fused_conv3x3_fwd(g, w_rot, reflect=False)
+            dw = fc.fused_conv3x3_wgrad(x, g, reflect=False)
+            yr, _ = fc.fused_conv3x3_fwd_reference(xp, wp, reflect=False)
+            dr, _ = fc.fused_conv3x3_fwd_reference(
+                gp, wp.flip(0, 1).transpose(2, 3), reflect=False)
+            dwr = fc.fused_conv3x3_wgrad_reference(xp, gp, reflect=False)
+            torch.cuda.synchronize()
+            errs = {"fwd": rel_err(y, yr), "dgrad": rel_err(d, dr),
+                    "wgrad": rel_err(dw, dwr)}
+            print(f"check SRGAN training {shape} 64->{cout} zero pad "
+                  f"{str(dtype)[6:]} (dgrad {cout}->64): " + " ".join(
+                      f"{k} {v:.3e}" for k, v in errs.items()))
+            bad = {k: v for k, v in errs.items() if not v <= TOL[dtype]}
+            if bad:
+                raise AssertionError(f"kernels A/B disagree with their plain "
+                                     f"versions at the training shape "
+                                     f"{shape} -> {cout} {dtype}: {bad}")
+            if f32:
+                worst["fused_conv3x3_fwd"] = max(
+                    worst["fused_conv3x3_fwd"], abs_err(y, yr),
+                    abs_err(d, dr))
+                worst["fused_conv3x3_wgrad"] = max(
+                    worst["fused_conv3x3_wgrad"], abs_err(dw, dwr))
+            del x, g, y, d, dw, yr, dr, dwr
+    torch.backends.cudnn.allow_tf32 = True
+    return worst
+
+
+def check_train_generator(device="cuda", blocks=16):
+    """Phase 8a: one train-mode forward and backward of the full-width x8
+    Generator at batch 8 on the 24^2 training patch, fused (g_fuse
+    'train': kernels A and B, f32) against the unfused net in f64 from the
+    same weights, cuDNN's TF32 off: output within 1e-4 and all parameter
+    gradients, as one vector against its largest entry, within 1e-3 (the
+    DIP net's gate). The unfused f32 net's distance is printed beside."""
+    torch.backends.cudnn.allow_tf32 = False
+    nets = {"fused": srgan_generator(None, blocks, device),
+            "off": srgan_generator(None, blocks, device),
+            "off_f64": srgan_generator(None, blocks, device).double()}
+    lr = torch.rand(TRAIN_B, 3, TRAIN_LR, TRAIN_LR,
+                    generator=torch.Generator().manual_seed(4)).to(device)
+    outs, grads = {}, {}
+    for name, net in nets.items():
+        y = net(lr.to(next(net.parameters()).dtype), True,
+                fuse=name == "fused")
+        y.square().mean().backward()
+        outs[name] = y.detach()
+        grads[name] = torch.cat([p.grad.flatten() for p in net.parameters()])
+    err = {k: (rel_err(outs[k], outs["off_f64"]),
+               rel_err(grads[k], grads["off_f64"])) for k in ("fused", "off")}
+    print(f"SRGAN training G x8, batch {TRAIN_B} at {TRAIN_LR}^2, {blocks} "
+          f"blocks, train mode, TF32 off, against the f64 unfused net: "
+          f"fused f32 out {err['fused'][0]:.3e} grads {err['fused'][1]:.3e}; "
+          f"unfused f32 out {err['off'][0]:.3e} grads {err['off'][1]:.3e}")
+    if not (err["fused"][0] <= 1e-4 and err["fused"][1] <= 1e-3):
+        raise AssertionError("fused training G disagrees with the f64 net")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def write_train_tree(root, n=TRAIN_IMAGES, lr_side=2 * TRAIN_LR_SIDE):
+    """A synthetic DIV2K train tree: n HR images of 8 * lr_side and their x8
+    LRs; the loader's /2 gives bench.py's 96^2 LR and 768^2 HR."""
+    from PIL import Image
+
+    hr_dir = os.path.join(root, "DIV2K_train_HR")
+    lr_dir = os.path.join(root, "DIV2K_train_LR_x8")
+    os.makedirs(hr_dir)
+    os.makedirs(lr_dir)
+    rng = np.random.default_rng(1)
+    side = 8 * lr_side
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32)
+    for i in range(n):
+        img = np.stack([np.sin(xx / (31.0 + i)) * np.cos(yy / 23.0),
+                        np.sin((xx + yy + 40 * i) / 51.0),
+                        np.cos(xx / 17.0 - yy / (29.0 + i))], -1) * 90 + 128
+        img = np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(
+            np.uint8)
+        hr = Image.fromarray(img)
+        hr.save(os.path.join(hr_dir, f"{i + 1:04d}.png"), compress_level=1)
+        hr.resize((lr_side, lr_side), Image.BICUBIC).save(
+            os.path.join(lr_dir, f"{i + 1:04d}x8.png"))
+
+
+def run_train_cli(root, dtype, device="cuda", blocks=16):
+    """One ``cli/train_gan.run`` (2 pre-train + 1 fine-tune epochs, log every
+    epoch) with the launch counts around it; its files, finite losses and
+    a pre-trained G that the eval CLI's loader takes. Returns (counts, s)."""
+    from tpusr_torch.cli import eval_gan, train_gan
+    from tpusr_torch.engine.gan import GANTrainConfig
+
+    out = os.path.join(root, f"out_{dtype}_{os.getpid()}")
+    os.makedirs(out)
+    reset_counts()
+    t0 = time.perf_counter()
+    out_dir = train_gan.run([
+        "--data_dir", root, "--out_dir", out, "--pre_train_epochs", "2",
+        "--fine_tune_epochs", "1", "--train_log_freq", "1", "--dtype",
+        dtype, "--residual_blocks", str(blocks), "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    files = set(os.listdir(out_dir))
+    want = {f"{p}_{k}" for p in ("pre_trained", "fine_tuned")
+            for k in ("state", "srgan_G.pth", "srgan_D.pth")}
+    logs = [f for f in files if f.endswith("_log.txt")]
+    if not (want <= files and len(logs) == 2):
+        raise AssertionError(f"train CLI wrote {sorted(files)}")
+    final = {}
+    for f in logs:
+        for line in open(os.path.join(out_dir, f)).read().splitlines():
+            key, value = line.split(": ", 1)
+            final[key] = value
+    losses = [float(final[k]) for k in ("Final Generator loss",
+                                        "Final Discriminator loss")]
+    psnrs = json.loads(final["Average PSNR during training"])
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(psnrs))):
+        raise AssertionError(f"train CLI losses/PSNR not finite: {final}")
+    g, _ = eval_gan.load_generator(
+        os.path.join(out_dir, "pre_trained_srgan_G.pth"),
+        GANTrainConfig(residual_blocks_count=blocks), device)
+    with torch.inference_mode():
+        y = g(torch.rand(1, 3, 24, 24, device=device))
+    if not (y.shape == (1, 3, 192, 192) and bool(torch.isfinite(y).all())):
+        raise AssertionError("the pre-trained G.pth does not serve eval")
+    print(f"train CLI {dtype}: {TRAIN_CLI_STEPS} steps of batch {TRAIN_B} "
+          f"in {wall:.3f} s (PNG decode, PIL resizes, init, metrics and "
+          f"saves included); final losses G {losses[0]:.4f} D "
+          f"{losses[1]:.4f}; PSNR per epoch {psnrs}; launches {counts}")
+    return counts, wall
+
+
+def train_cli_child(root, out_json):
+    """Subprocess body: the train CLI in both dtypes with TPUSR_G_FUSE set
+    by the parent, its launch counts written to out_json."""
+    res = {dtype: run_train_cli(root, dtype)[0]
+           for dtype in ("float32", "bfloat16")}
+    with open(out_json, "w") as f:
+        json.dump(res, f)
+
+
+def run_train_main_paths(root):
+    """Phase 8b: the train CLI in f32 and bf16, in this process (default
+    routing, g_fuse 'eval': the training G on cuDNN) and in a subprocess
+    with TPUSR_G_FUSE=train (read at import). Per train-routed step 72 A and
+    36 B; the metrics forward of each step of a log epoch 36 A."""
+    paths = {}
+    for dtype in ("float32", "bfloat16"):
+        paths[f"srgan train {dtype} g_fuse=eval"], _ = run_train_cli(root,
+                                                                     dtype)
+    out_json = os.path.join(root, "child_counts.json")
+    env = dict(os.environ, TPUSR_G_FUSE="train")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--train-cli-child", root, out_json], env=env,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI child failed: {proc.returncode}")
+    with open(out_json) as f:
+        child = json.load(f)
+    for dtype, counts in child.items():
+        paths[f"srgan train {dtype} g_fuse=train"] = counts
+    zero = {k: 0 for k in read_counts()}
+    steps = TRAIN_CLI_STEPS
+    want_train = {**zero, "fused_conv3x3_fwd": steps * (72 + 36),
+                  "fused_conv3x3_wgrad": steps * 36}
+    for name, counts in paths.items():
+        want = want_train if name.endswith("train") else zero
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, want {want}")
+    return paths
+
+
+def train_workload(cfg, device="cuda", n=TRAIN_IMAGES, side=TRAIN_LR_SIDE):
+    """bench.py's gan_train inputs: random uint8 stacks of n images of
+    side^2 LR (and x8 HR), all valid; a state from seed 0."""
+    from tpusr_torch.engine.gan import create_gan_state
+
+    state = create_gan_state(cfg, cfg.pre_train_lr,
+                             generator=torch.Generator().manual_seed(0),
+                             device=device)
+    rng = np.random.default_rng(0)
+    f = cfg.factor
+    lr_u8 = torch.from_numpy(rng.integers(0, 256, (n, side, side, 3),
+                                          dtype=np.uint8)).to(device)
+    hr_u8 = torch.from_numpy(rng.integers(0, 256, (n, f * side, f * side, 3),
+                                          dtype=np.uint8)).to(device)
+    valid = torch.full((n, 2), side, dtype=torch.int32, device=device)
+    return state, lr_u8, hr_u8, valid
+
+
+def random_vgg(device="cuda"):
+    """VGG19 feature weights drawn from seed 0 (He normal, small biases)."""
+    from tpusr_torch.models import vgg19
+
+    gen = torch.Generator().manual_seed(0)
+    params, cin = {}, 3
+    names = iter(vgg19.vgg19_layer_names())
+    for cout, n in vgg19._VGG19_BLOCKS:
+        for _ in range(n):
+            params[next(names)] = {
+                "weight": (torch.randn(cout, cin, 3, 3, generator=gen)
+                           * (2.0 / (9 * cin)) ** 0.5).to(device),
+                "bias": (torch.randn(cout, generator=gen) * 0.01).to(device)}
+            cin = cout
+    return params
+
+
+def time_gan_train(label, cfg, steps=50, warmup=6, device="cuda",
+                   content_loss=None):
+    """Phase 8c: bench.py's gan_train workload through the port's epoch
+    trainer: patches/s over ``steps`` steps after ``warmup`` (the first
+    epoch of each call takes its metrics forward, as bench.py's does)."""
+    from tpusr_torch.engine import losses
+    from tpusr_torch.engine.gan_epochs import gan_train_epochs
+
+    state, lr_u8, hr_u8, valid = train_workload(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    per_epoch = lr_u8.shape[0] // cfg.batch_size
+    content = content_loss or losses.mse
+
+    def run(n):
+        _, logs = gan_train_epochs(state, lr_u8, hr_u8, valid, gen, cfg,
+                                   content, n_epochs=max(1, n // per_epoch))
+        return float(logs["losses_G"][-1, -1])
+
+    run(warmup)
+    t0 = time.perf_counter()
+    last = run(steps)
+    dt = time.perf_counter() - t0
+    if not np.isfinite(last):
+        raise AssertionError(f"{label}: loss not finite")
+    rate = cfg.batch_size * steps / dt
+    print(f"SRGAN train {label}: {rate:.2f} patches/s ({dt / steps * 1e3:.3f}"
+          f" ms/step over {steps} steps after {warmup})")
+    return dict(patches_per_s=rate, ms_per_step=dt / steps * 1e3)
+
+
+def profile_train_step(label, cfg, device="cuda", top=10):
+    """Phase 8c: one step's device time, profiled: busy, idle share and
+    operations of the whole step (which must record all its kernel-A/B
+    launches under g_fuse 'train'), and the busy time of its parts from
+    windows of their own on the same state and patches: the G forward, the
+    D update (forward + backward), the G update (D on the fake, content,
+    backward through D and G), the two Adam steps; glue = PyTorch's own
+    elementwise, reduction and copy kernels of the whole step; VGG = a
+    step with VGG19 content on seeded weights minus the MSE step."""
+    from tpusr_torch.engine import gan as eng
+    from tpusr_torch.engine import losses
+    from tpusr_torch.engine.gan_epochs import _crop_pair
+
+    state, lr_u8, hr_u8, valid = train_workload(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    lr_p, hr_p = _crop_pair(lr_u8[:cfg.batch_size], hr_u8[:cfg.batch_size],
+                            valid[:cfg.batch_size], gen, TRAIN_LR, cfg.factor)
+    vgg = losses.make_content_loss(random_vgg(device))
+    fused = cfg.g_fuse == "train"
+
+    def step(content=losses.mse):
+        return lambda: eng.gan_train_step(state, lr_p, hr_p, cfg, content)
+
+    def g_and_d():
+        eng._d_update(state, eng._g_forward(state, lr_p, cfg), hr_p, cfg)
+
+    ms = time_ms(step(), 20, warmup=3)
+    ms_vgg = time_ms(step(vgg), 5, warmup=2)
+    kernels, busy = profile_window(step(), 1, expect=TRAIN_STEP_LAUNCHES
+                                   if fused else None)
+    parts = {
+        "G forward": profile_window(
+            lambda: eng._g_forward(state, lr_p, cfg), 3)[1],
+        "G forward + D update": profile_window(g_and_d, 3)[1],
+        "Adam D": profile_window(lambda: state.opt_D.step(), 3)[1],
+        "Adam G": profile_window(lambda: state.opt_G.step(), 3)[1],
+        "step with VGG19 content": profile_window(step(vgg), 1)[1]}
+    split = {
+        "G forward": parts["G forward"],
+        "D update": parts["G forward + D update"] - parts["G forward"]
+        - parts["Adam D"],
+        "G update": busy - parts["G forward + D update"] - parts["Adam G"],
+        "Adam": parts["Adam D"] + parts["Adam G"],
+        "glue (whole step)": sum(
+            e.self_device_time_total for e in kernels
+            if "at::native" in e.key or "Memcpy" in e.key
+            or "Memset" in e.key) / 1e3,
+        "VGG19 content": parts["step with VGG19 content"] - busy}
+    ab = ""
+    if fused:
+        a, b = (sum(e.self_device_time_total for e in kernels if k in e.key)
+                / 1e3 for k in (KERNEL_A, KERNEL_B))
+        ab = (f"; kernel A {a:.3f} ms, kernel B {b:.3f} ms (all 72 A and "
+              f"36 B launches recorded)")
+    ops = sum(e.count for e in kernels)
+    print(f"SRGAN train step {label}, batch {cfg.batch_size} at "
+          f"{cfg.hr_patch}^2: {ms:.3f} ms (CUDA events over 20), busy "
+          f"{busy:.3f} ms, idle share {1 - busy / ms:.4f}, {ops} device "
+          f"operations{ab}; with VGG19 content {ms_vgg:.3f} ms; busy by "
+          f"part: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    print_top(kernels, 1, top, "step")
+    return dict(ms=ms, busy=busy, idle=1 - busy / ms, ops=ops,
+                ms_vgg=ms_vgg, **split)
+
+
+def time_train_kernels():
+    """Phase 7, SRGAN training, f32 and bf16: kernel A at the residual
+    convs' (8, 24, 24, 64) -> 64 and at the largest dgrad, (8, 96, 96, 256)
+    -> 64; kernel B at (8, 24, 24, 64) x 64 and (8, 96, 96, 64) x 256; each
+    against one cuDNN call (F.conv2d, conv2d_weight; f32 without TF32)."""
+    from tpusr_torch.ops import fused_conv as fc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {"fused_conv3x3_fwd": {}, "fused_conv3x3_wgrad": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for (n, h, w, cin), cout in (((TRAIN_B, TRAIN_LR, TRAIN_LR, 64), 64),
+                                     ((TRAIN_B, 4 * TRAIN_LR, 4 * TRAIN_LR,
+                                       256), 64)):
+            x = torch.randn(n, h, w, cin, generator=gen,
+                            device="cuda").to(dtype)
+            wt = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda")
+                  / 24).to(dtype)
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            label = f"({n}, {h}, {w}, {cin}) -> {cout}, zero pad, {name}"
+            rows["fused_conv3x3_fwd"][label] = measure(
+                f"fused_conv3x3_fwd at {label}",
+                lambda: fc.fused_conv3x3_fwd(x, wt, reflect=False),
+                lambda: fc.fused_conv3x3_fwd_reference(x, wt, reflect=False),
+                lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=1),
+                2 * 9 * cin * cout * n * h * w,
+                (x.numel() + n * h * w * cout + wt.numel()) * isz, dtype)
+        for (n, h, w, cin), cout in (((TRAIN_B, TRAIN_LR, TRAIN_LR, 64), 64),
+                                     ((TRAIN_B, 4 * TRAIN_LR, 4 * TRAIN_LR,
+                                       64), 256)):
+            x = torch.randn(n, h, w, cin, generator=gen,
+                            device="cuda").to(dtype)
+            g = torch.randn(n, h, w, cout, generator=gen,
+                            device="cuda").to(dtype)
+            label = f"({n}, {h}, {w}, {cin}) x {cout}, zero pad, {name}"
+            rows["fused_conv3x3_wgrad"][label] = measure(
+                f"fused_conv3x3_wgrad at {label}",
+                lambda: fc.fused_conv3x3_wgrad(x, g, reflect=False),
+                lambda: fc.fused_conv3x3_wgrad_reference(x, g, reflect=False),
+                lambda: torch.nn.grad.conv2d_weight(
+                    x.permute(0, 3, 1, 2), (cout, cin, 3, 3),
+                    g.permute(0, 3, 1, 2), padding=1),
+                2 * 9 * cin * cout * n * h * w,
+                (x.numel() + g.numel()) * isz + 9 * cin * cout * 4, dtype)
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--train-cli-child"]:
+        train_cli_child(*sys.argv[2:4])
+        return 0
     from tpusr_torch.cli import dip as cli
     from tpusr_torch.ops import _build
     from tpusr_torch.ops import fused_conv as fc
@@ -1210,9 +1623,13 @@ def main() -> int:
     worst = check_kernels(fc)
     rrdb_worst = check_rrdb_kernels()
     worst["dense_block"] = rrdb_worst["dense_block"]
+    train_worst = check_train_kernels()
     worst["fused_conv3x3_fwd"] = max(worst["fused_conv3x3_fwd"],
                                      rrdb_worst["fused_conv3x3_fwd"],
-                                     check_srgan_kernels())
+                                     check_srgan_kernels(),
+                                     train_worst["fused_conv3x3_fwd"])
+    worst["fused_conv3x3_wgrad"] = max(worst["fused_conv3x3_wgrad"],
+                                       train_worst["fused_conv3x3_wgrad"])
     worst.update(check_degrade_kernels())
     print(f"phase 2: kernels agree with their plain versions; largest f32 "
           f"abs errors {worst}")
@@ -1266,10 +1683,34 @@ def main() -> int:
     timed["fused_conv3x3_fwd"]["srgan"] = {
         f"{shape} -> {cout}, zero pad, {str(dtype)[6:]}": row
         for (shape, cout, dtype), row in srgan_timed.items()}
+    train_timed = time_train_kernels()
+    for k, rows in train_timed.items():
+        timed[k]["srgan_train"] = rows
     timed.update(time_degrade_kernels())
     print("phase 7: timed (the record below is at up0_conv, 512^2, for A "
           "and B, at (1, 270, 480, 64) for C, at the DIV2K HR frame for D "
           "and E)")
+
+    import dataclasses
+    from tpusr_torch.engine.gan import GANTrainConfig
+
+    check_train_generator()
+    with tempfile.TemporaryDirectory() as root:
+        write_train_tree(root)
+        paths.update(run_train_main_paths(root))
+    print("phase 8: SRGAN training main path ran, through kernels A and B "
+          "under g_fuse=train")
+    bench_cfg = GANTrainConfig(dtype="bfloat16")  # bench.py:313
+    train_rows = {
+        "bf16 g_fuse=eval": bench_cfg,
+        "bf16 g_fuse=train": dataclasses.replace(bench_cfg, g_fuse="train"),
+        "f32 g_fuse=eval": dataclasses.replace(bench_cfg, dtype=None),
+        "f32 g_fuse=train": dataclasses.replace(bench_cfg, dtype=None,
+                                                g_fuse="train")}
+    for label, cfg in train_rows.items():
+        time_gan_train(label, cfg)
+    for label, cfg in train_rows.items():
+        profile_train_step(label, cfg)
 
     replaces = {"fused_conv3x3_fwd": "tpusr/ops/pallas_conv.py:72",
                 "fused_conv3x3_wgrad": "tpusr/ops/pallas_conv.py:297",

@@ -242,16 +242,42 @@ def test_packed_units_hold_the_kernels(dtype):
 
 
 def test_packing_is_cached_until_the_kernels_change():
+    """No cache is kept: every call packs the kernels as they are now, after
+    an in-place write and for inference tensors alike."""
     _, ks, _ = _operands((1, 1, 1), 8, torch.float32)
     first = db.packed_weights(ks, torch.bfloat16)
-    assert db.packed_weights(ks, torch.bfloat16) is first
-    assert db.packed_weights(ks, torch.float32) is not first
+    assert torch.equal(first, db.pack_weights(ks, torch.bfloat16))
+    assert torch.equal(db.packed_weights(ks, torch.float32),
+                       db.pack_weights(ks, torch.float32))
     with torch.no_grad():
         ks[3].mul_(2)  # in place: a new version
     again = db.packed_weights(ks, torch.bfloat16)
-    assert again is not first
+    assert not torch.equal(again, first)
     assert torch.equal(again, db.pack_weights(ks, torch.bfloat16))
     with torch.inference_mode():
         inf = [k.clone() for k in ks]
-    assert db.packed_weights(inf, torch.bfloat16) is not \
-        db.packed_weights(inf, torch.bfloat16)
+    assert torch.equal(db.packed_weights(inf, torch.bfloat16), again)
+
+
+@pytest.mark.parametrize("dtype", list(KINDS))
+def test_packing_sees_a_write_through_data(dtype):
+    """A write through .data moves neither data_ptr() nor the version
+    counter; the units must still hold the new values."""
+    _, ks, _ = _operands((1, 1, 1), 9, torch.float32)
+    ks = [torch.nn.Parameter(k) for k in ks]
+    db.packed_weights(ks, dtype)
+    ks[3].data.copy_(torch.randn_like(ks[3]))
+    assert torch.equal(db.packed_weights(ks, dtype),
+                       db.pack_weights(ks, dtype))
+
+
+@pytest.mark.parametrize("dtype", list(KINDS))
+def test_stacked_packing_matches_each_block(dtype):
+    """RRDBNet packs all its blocks at once: row b is block b's units."""
+    blocks = [_operands((1, 1, 1), 20 + b, torch.float32)[1]
+              for b in range(3)]
+    stacked = db.packed_weights([torch.stack(ks) for ks in zip(*blocks)],
+                                dtype)
+    assert stacked.shape == (3, db.pack_weights(blocks[0], dtype).numel())
+    for b, ks in enumerate(blocks):
+        assert torch.equal(stacked[b], db.pack_weights(ks, dtype))

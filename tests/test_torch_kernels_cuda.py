@@ -295,6 +295,36 @@ def test_kernel_a_at_the_srgan_shapes(gen, dtype, tol, shape):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(8, 24, 24, 64, 64), (8, 24, 24, 64, 256),
+                                   (8, 48, 48, 64, 256),
+                                   (8, 96, 96, 64, 256)])
+def test_kernels_at_the_srgan_training_shapes(gen, dtype, tol, shape):
+    """The training generator's convs under g_fuse='train' at batch 8 on
+    the 24^2 patch: kernel A forward, its dgrad (Cout -> 64, so Cin = 256
+    for the 64 -> 256 convs) and kernel B, zero pad, no prologue."""
+    n, h, w, cin, cout = shape
+    x = torch.randn(n, h, w, cin, generator=gen, device="cuda").to(dtype)
+    wt = ((torch.rand(3, 3, cin, cout, generator=gen, device="cuda") * 2 - 1)
+          / 24).to(dtype)
+    g = torch.randn(n, h, w, cout, generator=gen, device="cuda").to(dtype)
+    f64 = dtype == torch.float32
+    xp, wp, gp = (t.double() if f64 else t for t in (x, wt, g))
+    w_rot = wt.flip(0, 1).transpose(2, 3).contiguous()
+    y, _ = fc.fused_conv3x3_fwd(x, wt, reflect=False)
+    d, _ = fc.fused_conv3x3_fwd(g, w_rot, reflect=False)
+    dw = fc.fused_conv3x3_wgrad(x, g, reflect=False)
+    yr, _ = fc.fused_conv3x3_fwd_reference(xp, wp, reflect=False)
+    dr, _ = fc.fused_conv3x3_fwd_reference(
+        gp, wp.flip(0, 1).transpose(2, 3), reflect=False)
+    dwr = fc.fused_conv3x3_wgrad_reference(xp, gp, reflect=False)
+    torch.cuda.synchronize()
+    errs = {"fwd": _rel(y, yr), "dgrad": _rel(d, dr), "wgrad": _rel(dw, dwr)}
+    assert d.shape == (n, h, w, cin) and dw.shape == (3, 3, cin, cout)
+    assert all(e < tol for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
 def test_kernel_a_at_the_rrdb_shape(gen, dtype, tol):
     """RRDBNet's trunk and upsampling convs: zero pad, no prologue, 64 ->
     64, on a 270 x 480 frame (a ragged last row of tiles)."""

@@ -174,3 +174,22 @@ class GANDIV2KDataset(DIV2KDataset):
         """Full (uncropped, unscaled) [0,1] pair, seeded per (seed, idx)."""
         rng = np.random.default_rng((self.config.seed, idx))
         return get_image_pair(self.config, self.HR_images[idx], rng)
+
+
+def batch_iterator(dataset, batch_size: int, drop_last: bool = False,
+                   pad_to_full: bool = False):
+    """Minimal batching loader (the reference's DataLoader defaults:
+    shuffle=False, drop_last=False; train_GAN.py:175): stacked NHWC numpy
+    batches and their names. ``pad_to_full`` wraps the ragged last batch
+    with items from the dataset's start, as tpusr does, so every batch has
+    ``batch_size`` rows."""
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        idxs = list(range(start, min(start + batch_size, n)))
+        if drop_last and len(idxs) < batch_size:
+            return
+        if pad_to_full:
+            idxs += [i % n for i in range(len(idxs), batch_size)]
+        items = [dataset[i] for i in idxs]
+        yield (np.stack([it[0] for it in items]),
+               np.stack([it[1] for it in items]), [it[2] for it in items])

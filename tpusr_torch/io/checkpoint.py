@@ -1,9 +1,11 @@
-"""Generator checkpoints as torch .pth files in the reference's naming.
+"""SRGAN checkpoints: .pth files in the reference's naming and the port's
+own training state.
 
-Counterpart of the .pth half of ``tpusr/io/checkpoint.py`` (reference
-utils/common.py:11-18, 46-60). A .pth written by the reference, by tpusr's
-``export_torch_generator`` + ``save_torch_pth`` or by the port's own
-export loads here, and the port's export loads in both of the others.
+Counterpart of ``tpusr/io/checkpoint.py`` (reference utils/common.py:
+11-18, 46-60). A generator or discriminator .pth written by the reference,
+by tpusr's ``export_torch_generator`` / ``export_torch_discriminator`` +
+``save_torch_pth`` or by the port's own export loads here, and the port's
+export loads in both of the others.
 
 Reference names (models/GAN/generator.py) against the port's modules:
 ``residual_blocks.{i}.*`` is ``res{i}.*``, ``pixel_shuffle_blocks.{i}.*`` is
@@ -11,8 +13,16 @@ Reference names (models/GAN/generator.py) against the port's modules:
 keep ``weight``/``bias``/``running_mean``/``running_var`` (the reference's
 ``num_batches_tracked`` is dropped on import and written as 0 on export).
 
-tpusr's orbax checkpoint directories need orbax and JAX, which the port
-does not use; tpusr converts them to a .pth.
+The discriminator's ``convblocks.{i}.conv1`` / ``.bn1`` are the port's
+``block{i}_conv`` / ``block{i}_bn``; the reference's ``dense1.weight`` is
+(1024, C*H*W) in C, H, W order and its columns are permuted to and from the
+port's NHWC flatten.
+
+The full training state (both nets, both Adam states, the step) is a
+``torch.save`` of tensors and plain data (``save_train_state``), for
+--checkpoint_every, --resume and the ``{prefix}_state`` files. tpusr's
+orbax checkpoint directories need orbax and JAX, which the port does not
+use: they are refused (tpusr converts weights to a .pth).
 """
 
 from __future__ import annotations
@@ -21,6 +31,9 @@ import os
 import re
 
 import torch
+
+from tpusr_torch.engine.gan import adam_moments, set_adam_moments
+from tpusr_torch.models.srgan import D_SCHEDULE, disc_feature_hw
 
 _CONV = ("weight", "bias")
 _BN = ("weight", "bias", "running_mean", "running_var")
@@ -114,8 +127,103 @@ def export_torch_generator(state: dict, residual_blocks_count: int = 16,
     return sd
 
 
+def _disc_name_pairs():
+    pairs = [(f"conv.{leaf}", f"conv.{leaf}") for leaf in _CONV]
+    for i in range(len(D_SCHEDULE)):
+        ref = f"convblocks.{i}"
+        pairs += [(f"{ref}.conv1.{leaf}", f"block{i}_conv.{leaf}")
+                  for leaf in _CONV]
+        pairs += [(f"{ref}.bn1.{leaf}", f"block{i}_bn.{leaf}")
+                  for leaf in _BN]
+    return pairs + [(f"dense{k}.{leaf}", f"dense{k}.{leaf}")
+                    for k in (1, 2) for leaf in _CONV]
+
+
+def _dense1_order(w: torch.Tensor, hr_patch: int, to_nhwc: bool):
+    hw, c = disc_feature_hw(hr_patch), D_SCHEDULE[-1][0]
+    if to_nhwc:  # columns C, H, W -> H, W, C
+        return w.reshape(-1, c, hw, hw).permute(0, 2, 3, 1).reshape(
+            w.shape[0], -1)
+    return w.reshape(-1, hw, hw, c).permute(0, 3, 1, 2).reshape(
+        w.shape[0], -1)
+
+
+def import_torch_discriminator(sd: dict, hr_patch: int = 192) -> dict:
+    """Reference Discriminator state dict -> the port's Discriminator state
+    dict (f32 CPU tensors), dense1's columns permuted from the reference's
+    C, H, W flatten to H, W, C (discriminator.py:54)."""
+    out = {port: torch.as_tensor(sd[ref]).to(torch.float32)
+           for ref, port in _disc_name_pairs()}
+    out["dense1.weight"] = _dense1_order(out["dense1.weight"], hr_patch,
+                                         True).contiguous()
+    return out
+
+
+def export_torch_discriminator(state: dict, hr_patch: int = 192) -> dict:
+    """The port's Discriminator state dict -> the reference-named one, f32
+    CPU tensors (bf16-stored weights widened), dense1 back in C, H, W
+    order (save_model(pre_trained_D), train_GAN.py:188)."""
+    sd = {ref: state[port].detach().to("cpu", torch.float32)
+          for ref, port in _disc_name_pairs()}
+    sd["dense1.weight"] = _dense1_order(sd["dense1.weight"], hr_patch,
+                                        False).contiguous()
+    for key in [k for k in sd if k.endswith(".running_var")]:
+        sd[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(
+            0, dtype=torch.int64)
+    return sd
+
+
 def save_torch_pth(sd: dict, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save({k: torch.as_tensor(v).contiguous() for k, v in sd.items()},
                path)
     print(f"Model saved to {path}")
+
+
+def _refuse_orbax(path: str) -> None:
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (a tpusr orbax checkpoint?); tpusr_torch "
+            f"reads its own state files (torch.save) and generator / "
+            f"discriminator .pth files only, since orbax needs JAX")
+
+
+def save_train_state(path: str, state) -> None:
+    """The whole GANTrainState as one torch.save file: both nets' state
+    dicts, both Adam states as (count, m, v) and the step."""
+    def opt(o):
+        count, ms, vs = adam_moments(o)
+        return {"count": count, "m": [t.detach().cpu() for t in ms],
+                "v": [t.detach().cpu() for t in vs]}
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"format": "tpusr_torch GANTrainState",
+                "G": {k: v.cpu() for k, v in state.G.state_dict().items()},
+                "D": {k: v.cpu() for k, v in state.D.state_dict().items()},
+                "opt_G": opt(state.opt_G), "opt_D": opt(state.opt_D),
+                "step": int(state.step)}, path)
+    print(f"State saved to {path}")
+
+
+def load_train_state(path: str, state):
+    """Restore ``save_train_state``'s file into ``state`` (built for the
+    same configuration) in place and return it. Tensors are cast to the
+    target's dtypes, so a state written with f32 D moments or weights
+    resumes into bf16 storage and back. An orbax directory is refused."""
+    _refuse_orbax(path)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(saved, dict)
+            and saved.get("format") == "tpusr_torch GANTrainState"):
+        raise ValueError(f"{path} is not a tpusr_torch training state")
+    with torch.no_grad():
+        for net, key in ((state.G, "G"), (state.D, "D")):
+            own = net.state_dict()
+            if set(own) != set(saved[key]):
+                raise KeyError(f"{path}: {key} does not fit this model")
+            for k, v in saved[key].items():
+                own[k].copy_(v)
+    for opt, key in ((state.opt_G, "opt_G"), (state.opt_D, "opt_D")):
+        o = saved[key]
+        set_adam_moments(opt, o["count"], o["m"], o["v"])
+    state.step = int(saved["step"])
+    return state

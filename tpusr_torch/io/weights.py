@@ -1,5 +1,5 @@
-"""Weight bridge: JAX (flax) variables -> the port's SkipNet, RRDBNet and
-SRGAN Generator.
+"""Weight bridge: JAX (flax) variables -> the port's SkipNet, RRDBNet,
+SRGAN Generator and Discriminator, and a whole SRGAN training state.
 
 The JAX package keeps conv kernels HWIO and BatchNorm params as
 ``scale``/``bias`` with running stats ``mean``/``var`` in a separate
@@ -16,6 +16,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from tpusr_torch.engine.gan import set_adam_moments
 
 # (collection, flax leaf) -> (torch name, convert)
 _LEAVES = {
@@ -111,3 +113,52 @@ def load_flax_generator(module: nn.Module, params: Mapping,
     flat.update(_flatten_nested(batch_stats, renames={
         "mean": "running_mean", "var": "running_var"}))
     _copy_into(module, flat)
+
+
+def _flat_discriminator(tree: Mapping) -> dict[str, np.ndarray]:
+    """A flax Discriminator tree (params or an Adam moment tree of the same
+    shape) -> {port name: array}: conv kernels HWIO -> OIHW, BN scale ->
+    weight, dense{k}/Dense_0/kernel (in, out) -> dense{k}.weight (out,
+    in)."""
+    flat = {}
+    for name, sub in tree.items():
+        if name.startswith("dense"):
+            sub = sub["Dense_0"]
+            flat[f"{name}.weight"] = np.asarray(sub["kernel"], np.float32).T
+            flat[f"{name}.bias"] = np.asarray(sub["bias"], np.float32)
+        else:
+            flat.update(_flatten_nested({name: sub},
+                                        renames={"scale": "weight"}))
+    return flat
+
+
+def load_flax_discriminator(module: nn.Module, params: Mapping,
+                            batch_stats: Mapping) -> None:
+    """Copy flax SRGAN Discriminator variables (``conv``, ``block{i}_conv``,
+    ``block{i}_bn``, ``dense{1,2}/Dense_0``) into ``module`` in place,
+    into its parameters' own dtypes (bf16-stored ones included). Raises on
+    a missing or extra key and on a shape mismatch."""
+    flat = _flat_discriminator(params)
+    flat.update(_flatten_nested(batch_stats, renames={
+        "mean": "running_mean", "var": "running_var"}))
+    _copy_into(module, flat)
+
+
+def load_flax_gan_state(state, jax_state) -> None:
+    """Carry a tpusr GANTrainState (its leaves as numpy) into the port's
+    GANTrainState (built for the same configuration) in place: both nets
+    and their statistics, both Adam states (count, m, v, cast to the
+    optimizers' storage) and the step."""
+    load_flax_generator(state.G, jax_state.params_G, jax_state.stats_G)
+    load_flax_discriminator(state.D, jax_state.params_D, jax_state.stats_D)
+    for net, opt, tx, flat in (
+            (state.G, state.opt_G, jax_state.opt_G,
+             lambda t: _flatten_nested(t, renames={"scale": "weight"})),
+            (state.D, state.opt_D, jax_state.opt_D, _flat_discriminator)):
+        adam = tx[0]  # (ScaleByAdamState(count, mu, nu), EmptyState())
+        mu, nu = flat(adam.mu), flat(adam.nu)
+        names = [n for n, _ in net.named_parameters()]
+        set_adam_moments(opt, int(np.asarray(adam.count)),
+                         [torch.from_numpy(np.array(mu[n])) for n in names],
+                         [torch.from_numpy(np.array(nu[n])) for n in names])
+    state.step = int(np.asarray(jax_state.step))

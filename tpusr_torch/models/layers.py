@@ -132,7 +132,13 @@ class BatchNorm(nn.Module):
       uses the mean of x as passed.
     * ``return_affine=True``: return (eff_scale, eff_bias) in f32.
     * ``update_stats=False``: a train-mode forward whose running-stat update
-      is discarded (the DIP metric and resolve forwards).
+      is discarded (the DIP metric and resolve forwards, the G update's
+      discriminator).
+    * ``stat_groups=g`` (train mode): x stacks g independent batches along
+      N; each group normalises with its own statistics over (N/g, H, W) and
+      the running statistics take the g momentum updates in group order,
+      as g sequential calls would (the SRGAN discriminator's concat(real,
+      fake) update).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -153,7 +159,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, use_running_average: bool = False, *,
                 conv_stats=None, return_affine: bool = False,
-                update_stats: bool = True):
+                update_stats: bool = True, stat_groups: int = 1):
+        if stat_groups > 1 and (conv_stats is not None or return_affine):
+            raise ValueError("stat_groups > 1 is incompatible with "
+                             "conv_stats/return_affine")
         in_dtype = x.dtype
         pending = 0.0
         if use_running_average:
@@ -168,6 +177,8 @@ class BatchNorm(nn.Module):
             pending = cb
             if update_stats:
                 self._update(mean, var, n)
+        elif stat_groups > 1:
+            return self._grouped(x, stat_groups, update_stats)
         else:
             mean, var, n = _batch_moments(x)
             if update_stats:
@@ -179,6 +190,22 @@ class BatchNorm(nn.Module):
             return eff_scale, eff_bias
         return (x * _per_channel(eff_scale, in_dtype)
                 + _per_channel(eff_bias, in_dtype))
+
+    def _grouped(self, x, g: int, update_stats: bool):
+        if x.shape[0] % g:
+            raise ValueError(f"batch {x.shape[0]} not divisible into {g} "
+                             f"stat groups")
+        xg = x.reshape(g, x.shape[0] // g, *x.shape[1:])
+        moments = [_batch_moments(part) for part in xg]
+        if update_stats:
+            for mean, var, n in moments:  # group order = call order
+                self._update(mean, var, n)
+        mean = torch.stack([m[0] for m in moments])  # (g, C)
+        inv = torch.rsqrt(torch.stack([m[1] for m in moments]) + self.eps)
+        es = (inv * self.weight).to(x.dtype)[:, None, :, None, None]
+        eb = (self.bias - mean * inv * self.weight).to(x.dtype)[
+            :, None, :, None, None]
+        return (xg * es + eb).reshape(x.shape)
 
 
 def _batch_moments(x):
@@ -318,6 +345,33 @@ class PReLU(nn.Module):
 
     def forward(self, x):
         return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+class Dense(nn.Module):
+    """torch nn.Linear: ``weight`` (features, in_features), the transpose
+    of the JAX package's (in, out) kernel, and ``bias``, both
+    U(+-1/sqrt(in_features)). ``dtype`` casts the input; the weight follows
+    the input's dtype (a bf16-stored weight computes in f32 for an f32
+    input, as a promoting dot does)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _uniform((features, in_features), in_features,
+                               generator)
+        self.bias = _uniform((features,), in_features, generator)
+
+    def forward(self, x):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def leaky_relu(x, negative_slope: float = 0.2):
+    """LeakyReLU in x's dtype."""
+    return F.leaky_relu(x, negative_slope)
 
 
 def pixel_shuffle(x, r: int):

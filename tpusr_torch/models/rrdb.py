@@ -14,11 +14,12 @@ NCHW tensors in channels_last memory, so the kernels see NHWC with no copy.
 ``fusion='auto'`` routes as the JAX package does: at nf 64 / gc 32 every
 dense block is one launch of kernel C (``ops/dense_block.py``: wgmma in
 bf16 on 16 x 16 tiles, 3xTF32 mma.sync in f32 on 8 x 8 tiles, c1..c4 in
-shared memory; its packed weights are cached against the parameters, so a
-frame launches nothing else for them); other widths run each dense-block
-conv through kernel A (``ops/fused_conv.py``, zero padding); trunk_conv,
-the upconvs and conv_hr go through kernel A. On a CPU tensor both kernels
-run their plain versions. ``fusion='off'`` is the unfused dataflow on ``F.conv2d``.
+shared memory; ``forward`` packs the weight units of all its blocks anew
+in a few batched operations, as the JAX package repacks per call); other
+widths run each dense-block conv through kernel A (``ops/fused_conv.py``,
+zero padding); trunk_conv, the upconvs and conv_hr go through kernel A.
+On a CPU tensor both kernels run their plain versions. ``fusion='off'``
+is the unfused dataflow on ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from torch import nn
 
 from tpusr_torch.device import resolve_device
 from tpusr_torch.models.layers import Conv, _nchw, _nhwc, _uniform, activation
-from tpusr_torch.ops.dense_block import dense_block
+from tpusr_torch.ops.dense_block import dense_block, packed_weights
 from tpusr_torch.ops.fused_conv import fused_conv3x3
 
 
@@ -68,13 +69,18 @@ class DenseBlock(nn.Module):
             setattr(self, f"conv{k}_bias", _uniform((cout,), 9 * cin,
                                                      generator))
 
-    def forward(self, x):
+    def kernels(self):
+        return [getattr(self, f"conv{k}_kernel") for k in range(1, 6)]
+
+    def forward(self, x, packed=None):
+        """packed: this block's units from ``packed_weights`` in the
+        activations' dtype, or None to pack them in kernel C's wrapper."""
         if self.dtype is not None:
             x = x.to(self.dtype)
-        kernels = [getattr(self, f"conv{k}_kernel") for k in range(1, 6)]
+        kernels = self.kernels()
         biases = [getattr(self, f"conv{k}_bias") for k in range(1, 6)]
         if self.kernel_c:
-            return _nchw(dense_block(_nhwc(x), kernels, biases))
+            return _nchw(dense_block(_nhwc(x), kernels, biases, packed))
         feats = [x]
         for k, (w, b) in enumerate(zip(kernels, biases), 1):
             c = (_conv3(torch.cat(feats, 1), w.to(x.dtype), self.fusion)
@@ -94,8 +100,12 @@ class RRDB(nn.Module):
             setattr(self, f"rdb{j}", DenseBlock(nf, gc, dtype, fusion,
                                                 generator))
 
-    def forward(self, x):
-        out = self.rdb3(self.rdb2(self.rdb1(x)))
+    def forward(self, x, packed=None):
+        """packed: (3, units), the rows of rdb1..rdb3, or None."""
+        out = x
+        for j in range(3):
+            out = getattr(self, f"rdb{j + 1}")(
+                out, None if packed is None else packed[j])
         return torch.add(x, out, alpha=0.2)
 
 
@@ -140,9 +150,19 @@ class RRDBNet(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         fea = self.conv_first(x.contiguous(memory_format=torch.channels_last))
+        packed = None
+        if x.is_cuda and self.nb and self.rrdb0.rdb1.kernel_c:
+            # every block's units in one go: a stack, a cast and a permute
+            # per conv, one cat
+            rdbs = [getattr(getattr(self, f"rrdb{i}"), f"rdb{j}")
+                    for i in range(self.nb) for j in range(1, 4)]
+            packed = packed_weights(
+                [torch.stack(ks) for ks in zip(*(r.kernels() for r in rdbs))],
+                fea.dtype).view(self.nb, 3, -1)
         trunk = fea
         for i in range(self.nb):
-            trunk = getattr(self, f"rrdb{i}")(trunk)
+            trunk = getattr(self, f"rrdb{i}")(
+                trunk, None if packed is None else packed[i])
         fea = fea + self.trunk_conv(trunk)
         for i in range(1, self.n_up + 1):
             fea = F.interpolate(fea, scale_factor=2, mode="nearest")

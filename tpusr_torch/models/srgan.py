@@ -1,7 +1,8 @@
-"""SRGAN generator, the model of ``cli/eval_gan.py``.
+"""SRGAN generator and discriminator.
 
 Counterpart of ``tpusr/models/srgan.py`` (reference models/GAN/
-generator.py:44-81) with the same module names (``conv1``, ``prelu1``,
+generator.py:44-81, discriminator.py:21-74). The generator has the same
+module names as tpusr's (``conv1``, ``prelu1``,
 ``res{i}``, ``conv2``, ``bn1``, ``ps{i}``, ``conv3``), so weights map one to
 one (``tpusr_torch.io.weights.load_flax_generator``, and the reference's
 .pth names through ``tpusr_torch.io.checkpoint``):
@@ -16,7 +17,13 @@ copy. The 3x3 convs run through kernel A (``ops/fused_conv.py``, zero
 padding, no prologue) when fused; the two 9x9 convs stay on ``F.conv2d``,
 as the JAX package leaves them to XLA. ``dtype=torch.bfloat16`` computes
 activations in bf16 with f32 parameters; the output is f32 in [-1, 1].
-The discriminator waits for the training slice.
+
+The discriminator (``conv``, ``block{i}_conv``, ``block{i}_bn``,
+``dense1``, ``dense2``, tpusr's names) returns logits; its convs stay on
+``F.conv2d``, as tpusr leaves them to XLA. ``dense1`` reads the last
+feature map flattened in NHWC (H, W, C) order, as tpusr's does, so the
+JAX weight bridge is a transpose; the reference's NCHW order appears only
+at .pth import and export (``io/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -25,9 +32,14 @@ import torch
 from torch import nn
 
 from tpusr_torch.device import resolve_device
-from tpusr_torch.models.layers import BatchNorm, Conv, PReLU, pixel_shuffle
+from tpusr_torch.models.layers import (BatchNorm, Conv, Dense, PReLU,
+                                      leaky_relu, pixel_shuffle)
 
 N_SHUFFLES = {2: 1, 4: 2, 8: 3, 16: 4}
+# the discriminator's (channels, stride) after its stem
+# (discriminator.py:29-35)
+D_SCHEDULE = ((64, 2), (128, 1), (128, 2), (256, 1), (256, 2), (512, 1),
+              (512, 2))
 
 
 class ResidualBlock(nn.Module):
@@ -116,3 +128,64 @@ class Generator(nn.Module):
         for i in range(self.shuffles):
             z = getattr(self, f"ps{i}")(z, fuse)
         return torch.tanh(self.conv3(z).float())
+
+
+def disc_feature_hw(n: int) -> int:
+    """Side of the discriminator's last feature map for an n x n input: the
+    four stride-2 k3 pad-1 convs each map n -> ceil(n / 2) (200 -> 13, not
+    n // 16)."""
+    for _ in range(4):
+        n = (n + 1) // 2
+    return n
+
+
+class Discriminator(nn.Module):
+    """SRGAN discriminator over NCHW patches in [-1, 1]; f32 logits (N, 1).
+
+    hr_patch: the square input side, which sizes dense1 (at 192 the last
+    map is 12 x 12 x 512 and dense1 holds 75.5 M weights). dtype: None or
+    torch.bfloat16 activations. Init: U(+-1/sqrt(fan_in)) from
+    ``generator``; BN scale 1, bias 0, running mean 0, var 1.
+    """
+
+    def __init__(self, hr_patch: int = 192, dtype: torch.dtype | None = None,
+                 device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dtype = dtype
+        kw = dict(dtype=dtype, generator=generator)
+        self.conv = Conv(3, 64, 3, **kw)
+        cin = 64
+        for i, (ch, st) in enumerate(D_SCHEDULE):
+            setattr(self, f"block{i}_conv", Conv(cin, ch, 3, stride=st, **kw))
+            setattr(self, f"block{i}_bn", BatchNorm(ch))
+            cin = ch
+        hw = disc_feature_hw(hr_patch)
+        self.dense1 = Dense(hw * hw * cin, 1024, **kw)
+        self.dense2 = Dense(1024, 1, **kw)
+        self.to(dev)
+
+    def forward(self, x, train: bool = True, stat_groups: int = 1, *,
+                update_stats: bool = True):
+        """train=True normalises with batch statistics (per group of the
+        stat_groups stacked along N) and updates the running ones unless
+        update_stats is False."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = leaky_relu(self.conv(
+            x.contiguous(memory_format=torch.channels_last)))
+        for i in range(len(D_SCHEDULE)):
+            x = getattr(self, f"block{i}_conv")(x)
+            x = getattr(self, f"block{i}_bn")(x, not train,
+                                              update_stats=update_stats,
+                                              stat_groups=stat_groups)
+            x = leaky_relu(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+        x = leaky_relu(self.dense1(x))
+        return self.dense2(x).float()
+
+
+def discriminator_prob(logits: torch.Tensor) -> torch.Tensor:
+    """Sigmoid head of the reference discriminator (discriminator.py:72)."""
+    return torch.sigmoid(logits)

@@ -16,9 +16,10 @@ computes each stage on its region, the tile grown by the remaining halo.
 
 The kernel reads the weights as 52 packed units (``pack_weights``: per
 stage, per 16-channel chunk and per 32 outputs, 9 taps x 16 x 32 in the
-layout of the kernel's shared-memory slot), in the input's dtype. The
-packing is cached against the kernels' identity, storage and version, so a
-network's blocks pack once and later calls add no device work.
+layout of the kernel's shared-memory slot), in the input's dtype. They are
+packed on every forward, as the JAX package does: ``packed_weights`` packs
+the blocks of a whole network in a few batched operations, and
+``models/rrdb.py`` hands each block its row.
 
 Layout: NHWC ``(N, H, W, 64)`` activations for every N, H, W >= 1, and the
 five canonical HWIO kernels ``(3, 3, 64 + 32 (k - 1), 32 | 64)`` with f32
@@ -34,7 +35,6 @@ kernel has no backward of its own. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 import torch.nn.functional as F
@@ -132,39 +132,29 @@ def pack_weights(kernels, dtype):
     return torch.cat(units)
 
 
-_PACKED: dict = {}  # id of kernel 1 -> (state of the 5 kernels, packed)
-_PACKED_MAX = 256   # a 23-block RRDBNet in both dtypes holds 138
-
-
-def _state(kernels, dtype):
-    return tuple((weakref.ref(k), k.data_ptr(), k._version, k.dtype)
-                 for k in kernels) + (dtype,)
-
-
-def _same(state, kernels, dtype):
-    return state[-1] == dtype and all(
-        r() is k and (p, v, d) == (k.data_ptr(), k._version, k.dtype)
-        for (r, p, v, d), k in zip(state[:-1], kernels))
-
-
 def packed_weights(kernels, dtype):
-    """pack_weights, cached while the kernels are alive and unchanged (same
-    storage, same version). Inference tensors have no version counter: they
-    are packed on every call."""
-    if any(k.is_inference() for k in kernels):
-        return pack_weights(kernels, dtype)
-    key = (id(kernels[0]), dtype)
-    hit = _PACKED.get(key)
-    if hit is not None and _same(hit[0], kernels, dtype):
-        return hit[1]
-    for kk in [kk for kk, (st, _) in _PACKED.items() if st[0][0]() is None]:
-        del _PACKED[kk]
-    while len(_PACKED) >= _PACKED_MAX:
-        del _PACKED[next(iter(_PACKED))]
+    """pack_weights in a few batched operations, packed anew on every call
+    (no cache key can see a write through ``.data``, so none is kept, as
+    the JAX package repacks on every call). ``kernels`` are the 5 HWIO
+    kernels, each optionally stacked over blocks, (B, 3, 3, cin, cout):
+    the result is then (B, units) for B blocks at once."""
+    units = []
     with torch.no_grad():
-        packed = pack_weights(kernels, dtype)
-    _PACKED[key] = (_state(kernels, dtype), packed)
-    return packed
+        for k in kernels:
+            lead = k.shape[:-4]
+            cin, cout = k.shape[-2], k.shape[-1]
+            nch, nh = cin // KC, cout // UNIT_N
+            b = len(lead)
+            w = k.to(dtype).reshape(*lead, 9, nch, KC, nh, UNIT_N)
+            if dtype == torch.bfloat16:  # (t, c, kp, k8, h, nb, n8)
+                w = w.reshape(*lead, 9, nch, 2, 8, nh, 4, 8)
+                order = (1, 4, 0, 2, 5, 3, 6)
+            else:  # (t, c, kp, k4, h, n)
+                w = w.reshape(*lead, 9, nch, 4, 4, nh, UNIT_N)
+                order = (1, 4, 0, 2, 5, 3)
+            w = w.permute(*range(b), *(b + i for i in order))
+            units.append(w.reshape(*lead, -1))
+        return torch.cat(units, -1)
 
 
 # ------------------------------------------------------------ CUDA launcher
@@ -180,7 +170,7 @@ def _lib():
     return lib
 
 
-def _dense_block_cuda(x, kernels, biases):
+def _dense_block_cuda(x, kernels, biases, packed=None):
     _check(x.is_cuda, "the kernel takes CUDA tensors")
     _check(x.dtype in _DTYPES, f"dtype {x.dtype} not in float32/bfloat16")
     _check(x.is_contiguous(), "x must be contiguous NHWC")
@@ -190,7 +180,11 @@ def _dense_block_cuda(x, kernels, biases):
            "kernels and biases must be on x's device")
     if x.data_ptr() % 16:  # the kernel reads x by 16-byte copies
         x = x.clone()
-    wp = packed_weights(kernels, x.dtype)
+    wp = packed_weights(kernels, x.dtype) if packed is None else packed
+    _check(wp.dtype == x.dtype and wp.numel() == sum(k.numel()
+                                                     for k in kernels)
+           and wp.device == x.device and wp.is_contiguous(),
+           "packed units must be contiguous, in x's dtype, on x's device")
     bs = [b.to(torch.float32).contiguous() for b in biases]
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -209,27 +203,29 @@ class DenseBlockFn(torch.autograd.Function):
     """Kernel C forward; backward recomputes through the plain version."""
 
     @staticmethod
-    def forward(ctx, x, *params):
+    def forward(ctx, x, packed, *params):
         kernels, biases = params[:5], params[5:]
         ctx.save_for_backward(x, *params)
         if x.device.type == "cpu":
             return dense_block_reference(x, kernels, biases)
-        return _dense_block_cuda(x, kernels, biases)
+        return _dense_block_cuda(x, kernels, biases, packed)
 
     @staticmethod
     def backward(ctx, gy):
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             y = dense_block_reference(leaves[0], leaves[1:6], leaves[6:])
-        return torch.autograd.grad(y, leaves, gy)
+        grads = torch.autograd.grad(y, leaves, gy)
+        return grads[0], None, *grads[1:]
 
 
-def dense_block(x, kernels, biases):
+def dense_block(x, kernels, biases, packed=None):
     """y = x + 0.2 * c5 of one dense block, differentiable.
 
     x: (N, H, W, 64) f32/bf16, contiguous NHWC on CUDA; kernels: the 5
-    canonical HWIO kernels; biases: the 5 biases (f32). Kernel C on a CUDA
-    tensor, the plain version on a CPU tensor.
+    canonical HWIO kernels; biases: the 5 biases (f32); packed: their units
+    from ``packed_weights`` in x's dtype, or None to pack them here. Kernel
+    C on a CUDA tensor, the plain version on a CPU tensor.
     """
     _check_params(x, kernels, biases)
-    return DenseBlockFn.apply(x, *kernels, *biases)
+    return DenseBlockFn.apply(x, packed, *kernels, *biases)
