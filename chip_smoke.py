@@ -86,6 +86,22 @@ Phases (any failure raises, so the exit code is non-zero):
      steps after 6, g_fuse eval and train, bf16 and f32, and a profiled
      step of each (busy, idle share, operations; G forward, D update,
      G update, Adam, glue and VGG19 content by windows of their own).
+  9. DIP variants and tiled eval, full width, f32, kernels on: through
+     ``tpusr_torch.cli.dip.run`` with --device cuda on the 512^2 canvas,
+     L-BFGS 'fixed' and 'zoom' (100 Adam warm-up + 10 iterations, loss
+     falling; the zoom row prints its objective evaluations per
+     iteration), meshgrid input (input_depth 2), opt_over net,input,down
+     (z and the kernel moved), --bucket 64 on a 496 x 472
+     HR (the PNG keeps that size), --bucket 64 --batch_images 2 (two
+     images logged) and --profile_dir (a trace file written), 20
+     iterations each (5 for the profile): at least 20 kernel-A and 10
+     kernel-B launches per gradient evaluation, PSNR finite (and rising
+     on the other Adam rows); then each variant's
+     steady-state ms per iteration beside the Adam iteration's (each
+     timed twice, in ABBA order); then
+     ``tiled_generator_forward`` with 4 tiles of a 512 x 128 LR (windows
+     of 224 rows) against the whole-image forward (TF32 off, 1e-4
+     max-abs), 36 kernel-A launches per call, both timed.
 The line before the last holds the kernels' JSON record (each kernel with
 its design and its launches per main path), the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -1598,6 +1614,343 @@ def time_train_kernels():
     return rows
 
 
+# ------------------------------------------------------------ DIP variants
+# phase 9's DIP rows: (label, CLI flags, iterations, log_freq, tree); every
+# row at full width, f32, conv_fusion 'auto', on a 512^2 canvas ('ragged':
+# a 496 x 472 HR padded to 512^2 by --bucket 64)
+VARIANT_ROWS = (
+    ("dip lbfgs fixed", ["--optimizer", "lbfgs", "--lbfgs_line_search",
+                         "fixed"], 10, 1, "square"),
+    ("dip lbfgs zoom", ["--optimizer", "lbfgs"], 10, 1, "square"),
+    ("dip meshgrid", ["--input_method", "meshgrid", "--input_depth", "2"],
+     20, 10, "square"),
+    ("dip opt_over net,input,down", ["--opt_over", "net,input,down"], 20,
+     10, "square"),
+    ("dip bucket 64", ["--bucket", "64"], 20, 10, "ragged"),
+    ("dip bucket 64 batch 2", ["--bucket", "64", "--batch_images", "2",
+                               "--num_images", "2"], 20, 10, "ragged"),
+    ("dip profile", ["--profile_dir", "PROFILE"], 5, 5, "square"))
+RAGGED_HR = (496, 472)  # H x W after the loader's /2
+TILED_LR = (512, 128)  # H x W: 4 windows of 224 rows (halo 48) at 16 blocks
+
+
+def write_ragged_tree(root):
+    """Two DIV2K-layout pairs whose HR, after get_image_pair's /2, is
+    496 x 472 (LR 62 x 59): not a multiple of the 64 bucket."""
+    from PIL import Image
+
+    hr_dir = os.path.join(root, "DIV2K_train_HR")
+    lr_dir = os.path.join(root, "DIV2K_train_LR_x8")
+    os.makedirs(hr_dir)
+    os.makedirs(lr_dir)
+    h, w = 2 * RAGGED_HR[0], 2 * RAGGED_HR[1]
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i, name in enumerate(("0001", "0002")):
+        img = np.stack([np.sin(xx / (31.0 + 6 * i)) * np.cos(yy / 19.0),
+                        np.sin((xx - yy) / 43.0), np.cos(xx / 13.0)],
+                       -1) * 90 + 128
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(
+            np.uint8)
+        hr = Image.fromarray(img)
+        hr.save(os.path.join(hr_dir, f"{name}.png"))
+        hr.resize((w // 8, h // 8), Image.BICUBIC).save(
+            os.path.join(lr_dir, f"{name}x8.png"))
+
+
+class EngineSpy:
+    """Records, around one CLI run, what the engine hands back and what it
+    trains: the curves of every dip_superresolve* call the CLI makes (for
+    their gradient-evaluation counts) and the first and last z and kernel
+    that dip_iteration trains (opt_over input/down). Restores the engine's
+    functions on exit."""
+
+    NAMES = ("dip_superresolve", "dip_superresolve_bucketed",
+             "dip_superresolve_scan_bucketed")
+
+    def __init__(self, cli, dip):
+        self.cli, self.dip, self.curves, self.leaves = cli, dip, [], {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cli, n) for n in self.NAMES}
+        self.saved_iter = self.dip.dip_iteration
+        for n, fn in self.saved.items():
+            setattr(self.cli, n, self._wrap(fn))
+        spy = self
+
+        def iteration(net, down, opt, z, noise, lr, std, kernel=None,
+                      lr_mask=None):
+            for name, t in (("z", z), ("kernel", kernel)):
+                if t is not None and t.requires_grad:
+                    spy.leaves.setdefault(name, [t.detach().clone(), t])
+            return spy.saved_iter(net, down, opt, z, noise, lr, std, kernel,
+                                  lr_mask)
+
+        self.dip.dip_iteration = iteration
+        return self
+
+    def _wrap(self, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            self.curves.append(out[1])
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.cli, n, fn)
+        self.dip.dip_iteration = self.saved_iter
+
+    def grad_evals(self, warmup):
+        """Gradient evaluations of the run: the curves' 'evals' (each
+        image's; a grouped call's curves carry a leading image axis), plus
+        ``warmup`` per image."""
+        total = 0
+        for c in self.curves:
+            e = np.asarray(c["evals"])
+            images = e.shape[0] if e.ndim == 2 else 1
+            total += int(e.sum()) + warmup * images
+        return total
+
+    def losses(self):
+        """Each image's loss curve."""
+        return [row for c in self.curves
+                for row in np.atleast_2d(np.asarray(c["loss"]))]
+
+    def moved(self):
+        return {k: float((t.detach() - t0).abs().max())
+                for k, (t0, t) in self.leaves.items()}
+
+
+def run_variant(cli, dip, root, label, flags, num_iter, log_freq):
+    """Phase 9: one DIP variant through cli.run on the card, with the
+    launch counts read around it: at least 20 kernel-A and 10 kernel-B
+    launches per gradient evaluation, the resolved PNG at the image's own
+    size, finite PSNR and loss; the loss falling on the L-BFGS rows (whose
+    curves start after the warm-up); the PSNR curve rising on the Adam
+    rows but opt_over and the 5-iteration profile row (one point). Adam
+    at lr 0.01 on the downsampler's kernel (entries near 1e-3) wrecks the
+    forward model within a few steps, and PSNR and loss then swing in
+    tpusr as in the port, so that row asserts that z and the kernel
+    trained, not a trend."""
+    from PIL import Image
+
+    out = os.path.join(root, "out_" + label.replace(" ", "_").replace(
+        ",", "_"))
+    os.makedirs(out)
+    flags = [os.path.join(out, "trace") if f == "PROFILE" else f
+             for f in flags]
+    argv = ["--data_dir", root, "--out_dir", out, "--num_iter",
+            str(num_iter), "--train_log_freq", str(log_freq),
+            "--save_output", "True", "--device", "cuda", *flags]
+    reset_counts()
+    t0 = time.perf_counter()
+    with EngineSpy(cli, dip) as spy:
+        metrics = cli.run(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lbfgs = "lbfgs" in flags
+    evals = spy.grad_evals(dip.WARMUP_ITERS if lbfgs else 0)
+    n = metrics["Number of images evaluated over"]
+    iters = n * (num_iter + (dip.WARMUP_ITERS if lbfgs else 0))
+    curve = [float(v) for v in metrics["Average PSNR per epoch"]]
+    final = float(metrics["Average final PSNR"])
+    (stamp,) = os.listdir(os.path.join(out, "out", "DIPx8"))
+    img_dir = os.path.join(out, "out", "DIPx8", stamp, "images")
+    sizes = {f: Image.open(os.path.join(img_dir, f)).size
+             for f in sorted(os.listdir(img_dir)) if "resolved" in f}
+    extra = ""
+    if "zoom" in label:
+        steps = evals - dip.WARMUP_ITERS - 1
+        extra = (f"; {evals - dip.WARMUP_ITERS} objective evaluations in "
+                 f"{num_iter} L-BFGS iterations ({steps / num_iter:.2f} "
+                 f"line-search trial points per iteration after the first "
+                 f"evaluation)")
+    if spy.leaves:
+        extra += f"; trained leaves moved by (max abs) {spy.moved()}"
+    print(f"{label}: {n} image(s), {iters} iterations in {wall:.3f} s "
+          f"({wall / iters * 1e3:.3f} ms/iteration incl. set-up, metrics and "
+          f"PNGs); {evals} gradient evaluations; PSNR curve {curve} final "
+          f"{final:.4f}; resolved {sizes}; launches {counts}{extra}")
+    want_size = (RAGGED_HR[1], RAGGED_HR[0]) if "bucket" in label else (
+        512, 512)
+    if set(sizes.values()) != {want_size} or len(sizes) != n:
+        raise AssertionError(f"{label}: resolved PNGs {sizes}")
+    losses = spy.losses()
+    print(f"  loss curves {[[float(v) for v in row] for row in losses]}")
+    if not (np.all(np.isfinite(curve)) and np.isfinite(final)
+            and all(np.all(np.isfinite(row)) for row in losses)):
+        raise AssertionError(f"{label}: PSNR or loss not finite: {curve} "
+                             f"{final} {losses}")
+    if lbfgs:
+        if not all(row[-1] < row[0] for row in losses):
+            raise AssertionError(f"{label}: loss did not fall: {losses}")
+    elif "opt_over" not in label and len(curve) > 1 and not (
+            curve[-1] > curve[0]):
+        raise AssertionError(f"{label}: PSNR not rising: {curve}")
+    if not (counts["fused_conv3x3_fwd"] >= 20 * evals
+            and counts["fused_conv3x3_wgrad"] >= 10 * evals and evals > 0):
+        raise AssertionError(f"{label}: fewer than 20 A / 10 B launches per "
+                             f"gradient evaluation ({evals}): {counts}")
+    if "batch" in label and n != 2:
+        raise AssertionError(f"{label}: {n} images logged, not 2")
+    if "opt_over" in label:
+        moved = spy.moved()
+        if not (set(moved) == {"z", "kernel"}
+                and all(v > 0 for v in moved.values())):
+            raise AssertionError(f"{label}: z and the kernel did not train: "
+                                 f"{moved}")
+    if "profile" in label:
+        traces = os.listdir(os.path.join(out, "trace"))
+        size = sum(os.path.getsize(os.path.join(out, "trace", t))
+                   for t in traces)
+        print(f"  trace files {traces}, {size} bytes")
+        if not (traces and size > 0):
+            raise AssertionError(f"{label}: no trace written")
+    return counts
+
+
+def time_variants(iters=10, warmup=3):
+    """Phase 9b: ms per iteration of each variant, steady state, at full
+    width on the 512^2 canvas, f32, kernels on, in one process: CUDA events
+    over ``iters`` iterations after ``warmup`` (the zoom iteration reads its
+    trial values back, so its events enclose those syncs); each variant
+    timed twice, in ABBA order, and beside the Adam iteration."""
+    from tpusr_torch.engine import dip
+    from tpusr_torch.engine.lbfgs import (ZoomLBFGS, lbfgs_fixed_init,
+                                          lbfgs_fixed_step)
+    from tpusr_torch.engine.metrics import _valid_mask
+
+    def setup(input_depth=32, opt_over=()):
+        config = dip.DIPConfig(input_depth=input_depth)
+        net, down = dip.build(config, torch.Generator().manual_seed(0))
+        net.to("cuda", memory_format=torch.channels_last)
+        down.to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if input_depth == 2:
+            z = dip.meshgrid_input(512, 512).cuda().permute(0, 3, 1, 2)
+        else:
+            z = torch.rand(1, 512, 512, 32, generator=gen,
+                           device="cuda").permute(0, 3, 1, 2) * 0.1
+        lr = torch.rand(1, 3, 64, 64, generator=gen, device="cuda")
+        leaves, kernel = list(net.parameters()), None
+        if "input" in opt_over:
+            z = z.clone().requires_grad_()
+            leaves.append(z)
+        if "down" in opt_over:
+            kernel = down.kernel.clone().requires_grad_()
+            leaves.append(kernel)
+        return net, down, z, lr, leaves, kernel, gen
+
+    def adam(input_depth=32, opt_over=(), mask=None):
+        net, down, z, lr, leaves, kernel, gen = setup(input_depth, opt_over)
+        opt = torch.optim.Adam(leaves, lr=0.01)
+
+        def step():
+            noise = torch.randn(1, 512, 512, input_depth, generator=gen,
+                                device="cuda").permute(0, 3, 1, 2)
+            dip.dip_iteration(net, down, opt, z, noise, lr, 0.05, kernel,
+                              mask)
+        return step
+
+    def lbfgs(search):
+        net, down, z, lr, leaves, _, _ = setup()
+        x, vg = dip.flat_objective(net, down, leaves, z, lr)
+        box = {"x": x}
+        if search == "fixed":
+            box["state"] = lbfgs_fixed_init(x.numel(), 10, "cuda")
+
+            def step():
+                _, g = vg(box["x"])
+                upd, box["state"] = lbfgs_fixed_step(g, box["state"], 0.01)
+                box["x"] = box["x"] + upd
+        else:
+            zoom = ZoomLBFGS(x.numel(), 10, "cuda")
+            box["zoom"] = zoom
+
+            def step():
+                box["x"], _ = zoom.step(box["x"], vg)
+        return step, box
+
+    mask = _valid_mask((64, 64), (RAGGED_HR[0] // 8, RAGGED_HR[1] // 8),
+                       "cuda")[None, None, :, :, 0]
+    steps = {"adam (base)": adam(), "meshgrid": adam(input_depth=2),
+             "opt_over net,input,down": adam(opt_over=("input", "down")),
+             "bucketed (512^2 canvas, 496 x 472 valid)": adam(mask=mask)}
+    boxes = {}
+    for search in ("fixed", "zoom"):
+        steps[f"lbfgs {search}"], boxes[search] = lbfgs(search)
+    # host-bound times drift within a process: each step is timed twice,
+    # in the order A..F then F..A, and the two are averaged
+    times = {k: [] for k in steps}
+    for k in [*steps, *reversed(steps)]:
+        times[k].append(time_ms(steps[k], iters, warmup))
+    base = sum(times["adam (base)"]) / 2
+    print("DIP variants at 512^2 x8, full width, f32, kernels on, steady "
+          f"state (CUDA events over {iters} iterations after {warmup}, "
+          f"timed twice in ABBA order):")
+    rows = {}
+    for k, (t1, t2) in times.items():
+        rows[k] = (t1 + t2) / 2
+        print(f"  {k}: {rows[k]:.3f} ms/iteration ({t1:.3f}, {t2:.3f}); "
+              f"{rows[k] / base:.3f}x the Adam iteration")
+    zoom = boxes["zoom"]["zoom"]
+    rows["lbfgs zoom evals/iteration"] = (
+        (zoom.evals - 1) / len(zoom.linesearch_steps))
+    print(f"  lbfgs zoom: {rows['lbfgs zoom evals/iteration']:.3f} objective "
+          f"evaluations per iteration after the first; line-search steps "
+          f"{zoom.linesearch_steps}")
+    return rows
+
+
+def check_tiled_eval(tiles=4, iters=5):
+    """Phase 9c: tiled_generator_forward with 4 tiles of a 512 x 128 LR
+    (windows of 224 rows, shorter than the image) at full width (16
+    blocks), f32, held against generator_forward of the whole image with
+    cuDNN's TF32 off, to 1e-4 max-abs on [-1, 1]; 36 kernel-A launches per
+    call (one batched forward); then both timed (CUDA events, TF32 on as
+    the eval CLI runs)."""
+    from tpusr_torch.engine.gan import GANTrainConfig, generator_forward
+    from tpusr_torch.parallel.spatial import (generator_receptive_halo,
+                                              tiled_generator_forward)
+
+    cfg = GANTrainConfig()
+    net = srgan_generator(None)
+    lr = torch.rand(1, *TILED_LR, 3, generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda") * 2 - 1
+    halo = generator_receptive_halo(cfg)
+    core = -(-TILED_LR[0] // tiles)
+    window = min(TILED_LR[0], core + 2 * halo)
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        reset_counts()
+        tiled = tiled_generator_forward(net, lr, cfg, n_tiles=tiles)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        whole = generator_forward(net, lr, cfg)
+        err = abs_err(tiled, whole)
+        torch.backends.cudnn.allow_tf32 = True
+        ms_tiled = time_ms(lambda: tiled_generator_forward(
+            net, lr, cfg, n_tiles=tiles), iters, warmup=2)
+        ms_whole = time_ms(lambda: generator_forward(net, lr, cfg), iters,
+                           warmup=2)
+    print(f"SRGAN x8 tiled eval, LR {TILED_LR[0]} x {TILED_LR[1]} -> "
+          f"{8 * TILED_LR[0]} x {8 * TILED_LR[1]}, full width, f32, "
+          f"{tiles} tiles (halo {halo}, windows of {window} rows, "
+          f"{tiles * window / TILED_LR[0]:.3f}x the rows): max abs vs the "
+          f"whole image {err:.3e} (TF32 off; tolerance 1e-4); tiled "
+          f"{ms_tiled:.3f} ms, whole {ms_whole:.3f} ms "
+          f"({ms_tiled / ms_whole:.3f}x); launches per call {counts}")
+    if tiled.shape != whole.shape or not err <= 1e-4:
+        raise AssertionError(f"tiled eval disagrees with the whole image: "
+                             f"{err}")
+    if counts != {**{k: 0 for k in counts}, "fused_conv3x3_fwd": 36}:
+        raise AssertionError(f"tiled eval: not 36 kernel-A launches: "
+                             f"{counts}")
+    return counts, dict(err=err, ms_tiled=ms_tiled, ms_whole=ms_whole)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1711,6 +2064,20 @@ def main() -> int:
         time_gan_train(label, cfg)
     for label, cfg in train_rows.items():
         profile_train_step(label, cfg)
+
+    from tpusr_torch.engine import dip as dip_engine
+
+    with tempfile.TemporaryDirectory() as square, \
+            tempfile.TemporaryDirectory() as ragged:
+        write_pair(square)
+        write_ragged_tree(ragged)
+        for label, flags, num_iter, log_freq, tree in VARIANT_ROWS:
+            paths[label] = run_variant(
+                cli, dip_engine, square if tree == "square" else ragged,
+                label, flags, num_iter, log_freq)
+    time_variants()
+    paths["srgan eval tiled"], _ = check_tiled_eval()
+    print("phase 9: DIP variants and tiled eval ran through kernels A and B")
 
     replaces = {"fused_conv3x3_fwd": "tpusr/ops/pallas_conv.py:72",
                 "fused_conv3x3_wgrad": "tpusr/ops/pallas_conv.py:297",

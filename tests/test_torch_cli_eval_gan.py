@@ -80,7 +80,22 @@ def test_cli_agrees_with_tpusr(tree, tmp_path, noise):
 
 
 @pytest.mark.parametrize("flag", ["--tiles", "--spatial_shards"])
-def test_cli_refuses_unported_flags(tmp_path, capsys, flag):
+def test_cli_refuses_unported_flags(tree, tmp_path, capsys, flag):
+    """--tiles 3 (exact overlap-and-discard tiling) writes the PNGs a run
+    without tiles writes; --spatial_shards needs several devices and still
+    refuses."""
+    root, pth = tree
+    if flag == "--tiles":
+        _, plain = _run(cli.run, root, pth, tmp_path / "plain",
+                        ("--device", "cpu"))
+        got, tiled = _run(cli.run, root, pth, tmp_path / "tiled",
+                          ("--device", "cpu", "--tiles", "3"))
+        assert got["Number of images evaluated over"] == 2
+        for name in ("0801.png", "0802.png"):
+            np.testing.assert_array_equal(
+                np.asarray(Image.open(tiled / "images" / name)),
+                np.asarray(Image.open(plain / "images" / name)))
+        return
     with pytest.raises(SystemExit) as exc:
         cli.run(["--data_dir", str(tmp_path), "--out_dir", str(tmp_path),
                  "--model_path", "G.pth", flag, "2", "--device", "cpu"])

@@ -162,10 +162,16 @@ def test_short_run_raises_psnr_and_resolves_with_last_draw():
 
 
 def test_unported_variants_and_missing_card_raise():
+    """Every variant is ported; what tpusr rejects, the port rejects: an
+    unknown opt_over part, meshgrid input with input_depth != 2, an unknown
+    optimizer or line search; and 'cuda' without a card."""
     lr, hr = _pair(hw=32)
-    for kw in ({"optimizer": "lbfgs"}, {"input_method": "meshgrid"},
-               {"opt_over": "net,input"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for kw, match in (({"opt_over": "net,bogus"}, "bogus"),
+                      ({"input_method": "meshgrid"}, "input_depth=2"),
+                      ({"optimizer": "sgd"}, "optimizer"),
+                      ({"optimizer": "lbfgs", "lbfgs_line_search": "armijo"},
+                       "lbfgs_line_search")):
+        with pytest.raises(ValueError, match=match):
             dip.dip_superresolve(lr, hr, dip.DIPConfig(num_iter=1, **kw),
                                  device="cpu")
     if not torch.cuda.is_available():

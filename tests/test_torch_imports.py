@@ -31,7 +31,9 @@ def test_importing_the_port_loads_no_jax_or_tpusr():
               "tpusr_torch.models.lpips", "tpusr_torch.io.checkpoint",
               "tpusr_torch.engine.gan", "tpusr_torch.cli.eval_gan",
               "tpusr_torch.models.vgg19", "tpusr_torch.engine.losses",
-              "tpusr_torch.engine.gan_epochs", "tpusr_torch.cli.train_gan"):
+              "tpusr_torch.engine.gan_epochs", "tpusr_torch.cli.train_gan",
+              "tpusr_torch.engine.lbfgs", "tpusr_torch.utils.profiling",
+              "tpusr_torch.parallel.spatial"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -389,3 +389,62 @@ def test_degradation_kernels_statistics(gen):
     assert 0.02 < float(salt[..., 0].float().mean()) < 0.08
     assert 0.02 < float(pepper[..., 0].float().mean()) < 0.08
     assert torch.all(sp[~salt & ~pepper] == 128.0)
+
+
+def test_lbfgs_fixed_iteration_on_the_card_matches_the_cpu(gen):
+    """One L-BFGS 'fixed' iteration of a small DIP net on the deterministic
+    objective: on the card through kernels A (forward, dgrad) and B, against
+    the same iteration on the CPU through their plain versions."""
+    from tpusr_torch.engine import dip
+    from tpusr_torch.engine.lbfgs import lbfgs_fixed_init, lbfgs_fixed_step
+
+    config = dip.DIPConfig(factor=4, input_depth=8, skip_n33d=32,
+                           skip_n33u=32, num_scales=3)
+    cpu = torch.Generator().manual_seed(0)
+    z = torch.rand(1, 48, 48, 8, generator=cpu).permute(0, 3, 1, 2) * 0.1
+    lr = torch.rand(1, 3, 12, 12, generator=cpu)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        net, down = dip.build(config, torch.Generator().manual_seed(1))
+        net.to(dev, memory_format=torch.channels_last)
+        down.to(dev)
+        leaves = list(net.parameters())
+        before = dict(fc.LAUNCHES)
+        loss = dip.dip_loss(net, down, z.to(dev), lr.to(dev),
+                            update_stats=False)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        upd, _ = lbfgs_fixed_step(flat, lbfgs_fixed_init(flat.numel(), 10,
+                                                         dev), 0.01)
+        torch.cuda.synchronize()
+        out[dev] = (float(loss), flat.cpu(), upd.cpu())
+        if dev == "cuda":  # 6 fused convs: forward and dgrad (A), wgrad (B)
+            assert fc.LAUNCHES["fused_conv3x3_fwd"] - before[
+                "fused_conv3x3_fwd"] == 12
+            assert fc.LAUNCHES["fused_conv3x3_wgrad"] - before[
+                "fused_conv3x3_wgrad"] == 6
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    assert _rel(out["cuda"][1], out["cpu"][1]) < 1e-4
+    assert _rel(out["cuda"][2], out["cpu"][2]) < 1e-4
+
+
+def test_tiled_generator_forward_matches_the_whole_image(gen):
+    """Exact tiling on the card: 3 row tiles of a 70-row LR (windows 64
+    rows, shorter than the image) against the whole-image forward, TF32
+    off; kernel A runs in both."""
+    from tpusr_torch.engine.gan import (GANTrainConfig, build_generator,
+                                        generator_forward)
+    from tpusr_torch.parallel.spatial import tiled_generator_forward
+
+    config = GANTrainConfig(factor=8, residual_blocks_count=2)
+    g = build_generator(config, "cuda", torch.Generator().manual_seed(0))
+    lr = torch.rand(1, 70, 9, 3, generator=gen, device="cuda") * 2 - 1
+    before = fc.LAUNCHES["fused_conv3x3_fwd"]
+    with torch.inference_mode():
+        tiled = tiled_generator_forward(g, lr, config, n_tiles=3)
+        whole = generator_forward(g, lr, config)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["fused_conv3x3_fwd"] > before
+    assert tiled.shape == whole.shape == (1, 560, 72, 3)
+    assert float((tiled - whole).abs().max()) <= 1e-4

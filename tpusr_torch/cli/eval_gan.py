@@ -13,8 +13,10 @@ convs through kernel A), and writes the same ``out/GANx{f}/<timestamp>``
 tree, PNGs and ``*_log.txt`` as the JAX CLI. As there, HR images are in
 [-1, 1]; PSNR infers its range from the target and SSIM takes
 data_range 1.0; averages divide by the images evaluated; tanh output maps
-[-1, 1] -> [0, 255] before the PNG cast. --spatial_shards and --tiles
-above 1 are not ported yet and exit with a message.
+[-1, 1] -> [0, 255] before the PNG cast. --tiles N runs each image as N
+exact overlap-and-discard row tiles in one batched forward
+(``tpusr_torch.parallel.spatial``). --spatial_shards above 1 (several
+devices) is not ported yet and exits with a message.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from tpusr_torch.io.images import save_image, to_uint8
 from tpusr_torch.io.logs import save_log
 from tpusr_torch.models.lpips import make_lpips
 from tpusr_torch.models.srgan import N_SHUFFLES
+from tpusr_torch.parallel.spatial import tiled_generator_forward
 
 
 def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
@@ -81,8 +84,9 @@ def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
 
 
 def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
-             save_images: bool = True, device="cuda"):
-    """GAN_ISR_Batch_eval parity (eval_GAN.py:21-69); returns (metrics, n)."""
+             save_images: bool = True, device="cuda", tiles: int = 1):
+    """GAN_ISR_Batch_eval parity (eval_GAN.py:21-69); returns (metrics, n).
+    ``tiles`` > 1 runs each image through ``tiled_generator_forward``."""
     dev = resolve_device(device)
     lpips_fn = make_lpips()
     running = {"psnr": 0.0, "ssim": 0.0, "lpips": 0.0}
@@ -92,8 +96,12 @@ def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
         lr_dev = torch.from_numpy(lr_img[None]).to(dev)
         hr_dev = torch.from_numpy(hr_img[None]).to(dev)
         with torch.inference_mode():
-            resolved = generator_forward(generator, lr_dev, config,
-                                         train=False)
+            if tiles > 1:
+                resolved = tiled_generator_forward(generator, lr_dev, config,
+                                                   n_tiles=tiles)
+            else:
+                resolved = generator_forward(generator, lr_dev, config,
+                                             train=False)
             running["psnr"] += float(psnr_fn(resolved, hr_dev))
             running["ssim"] += float(ssim_fn(resolved, hr_dev,
                                              data_range=1.0))
@@ -127,8 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="not yet ported (JAX CLI: shard huge images "
                              "across devices)")
     parser.add_argument("--tiles", type=int, default=1,
-                        help="not yet ported (JAX CLI: exact overlap-"
-                             "discard tiling)")
+                        help="exact overlap-discard tiling of each image "
+                             "into this many row tiles, one batched forward")
     parser.add_argument("--residual_blocks", type=int, default=16)
     parser.add_argument("--legacy_scale", type=str2bool, default=False,
                         help="reproduce the reference's double-/255 image "
@@ -147,12 +155,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None):
     args = build_parser().parse_args(argv)
-    for flag in ("spatial_shards", "tiles"):
-        if getattr(args, flag) > 1:
-            print(f"--{flag} {getattr(args, flag)} is not yet ported to "
-                  f"tpusr_torch (the JAX CLI, python -m tpusr.cli.eval_gan, "
-                  f"has it)")
-            sys.exit(1)
+    if args.spatial_shards > 1:
+        print(f"--spatial_shards {args.spatial_shards} is not yet ported to "
+              f"tpusr_torch (the JAX CLI, python -m tpusr.cli.eval_gan, has "
+              f"it)")
+        sys.exit(1)
     require_dir(args.data_dir)
     require_dir(args.out_dir)
     check_num_images(args.num_images)
@@ -185,7 +192,7 @@ def run(argv=None):
     start_time = time.time()
     eval_metrics, n = evaluate(generator, dataset, out_dir, config,
                                save_images=args.save_images,
-                               device=args.device)
+                               device=args.device, tiles=args.tiles)
     runtime = time.time() - start_time
 
     print(f"Done evaluating for all {n} images.")

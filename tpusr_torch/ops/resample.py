@@ -6,6 +6,7 @@ reference's quirks (gauss half distances, phase-0.5 taps at
 |i+0.5-center|/factor, (w-1)x(w-1) phase-0.5 kernels, sum-1 normalization).
 The lanczos/gauss/box kernels are rank-1, so the 2-D depthwise conv runs as
 two strided 1-D depthwise passes; autograd gives the backward.
+``conv2d_with`` takes any 2-D kernel (opt_over='down' trains one).
 """
 
 from __future__ import annotations
@@ -115,6 +116,10 @@ class Downsampler(nn.Module):
         t = get_kernel_1d(factor, ktype, phase, kwidth, ksupport, ksigma)
         self.register_buffer("taps", torch.from_numpy(
             (t / t.sum()).astype(np.float32)))
+        # the full 2-D kernel, the leaf that opt_over='down' trains
+        self.register_buffer("kernel", torch.from_numpy(get_kernel(
+            factor, ktype, phase, kwidth, ksupport, ksigma).astype(
+                np.float32)), persistent=False)
         ksize = t.size
         if preserve_size:
             self.pad = ((ksize - 1) // 2 if ksize % 2 == 1
@@ -134,3 +139,15 @@ class Downsampler(nn.Module):
                      stride=(self.factor, 1), groups=c)
         return F.conv2d(y, taps.view(1, 1, 1, k).repeat(c, 1, 1, 1),
                         stride=(1, self.factor), groups=c)
+
+    def conv2d_with(self, x: torch.Tensor,
+                    kernel2d: torch.Tensor) -> torch.Tensor:
+        """Depthwise strided conv of x (N, C, H, W) with one 2-D kernel
+        (k, k) shared by every channel, after the same edge pad as
+        ``forward``. Equals ``forward`` when kernel2d == outer(taps, taps);
+        gradients reach every entry of the kernel, not only a rank-1 one."""
+        c, k = x.shape[1], kernel2d.shape[0]
+        if self.pad > 0:
+            x = F.pad(x, (self.pad,) * 4, mode="replicate")
+        w = kernel2d.to(x.dtype).view(1, 1, k, k).expand(c, 1, k, k)
+        return F.conv2d(x, w, stride=self.factor, groups=c)
