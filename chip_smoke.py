@@ -102,6 +102,37 @@ Phases (any failure raises, so the exit code is non-zero):
      ``tiled_generator_forward`` with 4 tiles of a 512 x 128 LR (windows
      of 224 rows) against the whole-image forward (TF32 off, 1e-4
      max-abs), 36 kernel-A launches per call, both timed.
+ 10. the multi-device paths (``tpusr_torch/parallel``), with one card:
+     (a) the native loader's status ('built' or 'unavailable: <reason>');
+     where it builds, byte-identical to the PIL path on the phase-5 valid
+     tree and the phase-8 train tree; (b) NCCL at world size 1 in this
+     process: ``make_dp_train_step`` at bench.py's gan_train shapes,
+     g_fuse='train', bf16 and f32, equal to ``gan_train_step`` from the
+     same state (cuDNN deterministic, TF32 off: f32 within 1e-5, bf16
+     within 2^-8 relative, first moments within 1e-6; bit-equal so far),
+     72 A and 36 B launches per
+     step, both timed (host clock, ABBA) with the step's collectives
+     counted and one timed (also a plain all-reduce in a fresh process,
+     with torch's NCCL flight recorder on and off); one shard of ``sharded_generator_forward``
+     equals ``generator_forward``; (c) two processes sharing the card in
+     a gloo group (NCCL refuses two ranks on one GPU; every collective is
+     staged through host memory): the 2-shard forward of a 512 x 128 LR
+     at 16 blocks (slabs of 256 >= 2 halo = 96, edge-exact) within 1e-4
+     of the whole forward (TF32 off), 36 A per rank, both timed; one DP
+     step at W=2 (global batch 8, f32) against one process (losses 5e-4,
+     state 1e-3, D's first moments DP_D_GRAD_REL) and an exact step (f64,
+     lr 0, adv_weight 0: both nets' first moments EXACT_GRAD_REL), 72 A
+     and 36 B per rank; ``dip_superresolve_sharded`` with 2 lanes of the
+     full-width 512^2 net for 10 iterations against
+     ``dip_superresolve_batch`` in one process (head 0 within 1e-4 dB,
+     lanes in order, head 1's PSNR and loss within SHARDED_DIP_DB /
+     SHARDED_DIP_LOSS, which the batch at learning rate 0 must exceed;
+     later heads printed beside a rerun of the same batch, which parts as
+     far), and the lane batch's gradient against each lane alone; (d) the
+     DIP iteration per image: the lane batch at N = 2 and 4 against the
+     loop of ``dip_superresolve_scan_bucketed`` (conv_fusion auto and
+     off). Phase 2 holds A and B at the new paths' shapes: a slab's
+     window (352 x 128) and a DP rank's batch of 4.
 The line before the last holds the kernels' JSON record (each kernel with
 its design and its launches per main path), the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -676,10 +707,11 @@ SRGAN_A_SHAPES = [  # (x shape, Cout) of every kernel-A call of the x8 eval
     ((1, LR_RAGGED[0] + 1, LR_RAGGED[1], 64), 64)]
 
 
-def check_srgan_kernels():
+def check_srgan_kernels(shapes=SRGAN_A_SHAPES, label="SRGAN"):
     """Phase 2, SRGAN: kernel A in the generator's configuration (zero pad,
-    no prologue) at every shape the x8 eval gives it. Returns the largest
-    f32 abs error."""
+    no prologue) at every shape the x8 eval gives it (or ``shapes``: one
+    slab's window of the 2-shard eval). Returns the largest f32 abs
+    error."""
     from tpusr_torch.ops import fused_conv as fc
 
     torch.backends.cudnn.allow_tf32 = False
@@ -688,7 +720,7 @@ def check_srgan_kernels():
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
-            for shape, cout in SRGAN_A_SHAPES:
+            for shape, cout in shapes:
                 x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                 wt = ((torch.rand(3, 3, 64, cout, generator=gen,
                                   device="cuda") * 2 - 1) / 24).to(dtype)
@@ -698,7 +730,7 @@ def check_srgan_kernels():
                     reflect=False)
                 torch.cuda.synchronize()
                 err = rel_err(y, yr)
-                print(f"check fused_conv3x3_fwd SRGAN configuration {shape} "
+                print(f"check fused_conv3x3_fwd {label} configuration {shape} "
                       f"64->{cout} zero pad {str(dtype)[6:]}: {err:.3e}")
                 if not err <= TOL[dtype]:
                     raise AssertionError(f"kernel A disagrees with its plain "
@@ -1239,12 +1271,13 @@ TRAIN_STEP_LAUNCHES = {KERNEL_A: 72, KERNEL_B: 36}
 TRAIN_CLI_STEPS = 3 * TRAIN_IMAGES // TRAIN_B  # 2 + 1 epochs of 2 steps
 
 
-def check_train_kernels():
+def check_train_kernels(shapes=TRAIN_A_SHAPES):
     """Phase 2, SRGAN training: kernel A forward, its dgrad (Cout -> 64,
     Cin = 256 for the 64 -> 256 convs) and kernel B at every shape the
     training G gives them under g_fuse='train' (batch 8, the 24^2 patch
-    and its x2 and x4 maps, zero pad, no prologue). Returns the largest
-    f32 abs error of each kernel."""
+    and its x2 and x4 maps, zero pad, no prologue; or ``shapes``: a
+    data-parallel rank's batch of 4). Returns the largest f32 abs error of
+    each kernel."""
     from tpusr_torch.ops import fused_conv as fc
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1252,7 +1285,7 @@ def check_train_kernels():
     worst = {"fused_conv3x3_fwd": 0.0, "fused_conv3x3_wgrad": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
-        for shape, cout in TRAIN_A_SHAPES:
+        for shape, cout in shapes:
             n, h, w, cin = shape
             x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
             wt = ((torch.rand(3, 3, cin, cout, generator=gen, device="cuda")
@@ -1951,6 +1984,643 @@ def check_tiled_eval(tiles=4, iters=5):
     return counts, dict(err=err, ms_tiled=ms_tiled, ms_whole=ms_whole)
 
 
+# ------------------------------------------------------- multi-device paths
+SHARD_LR = TILED_LR  # 2 slabs of 256 rows, halo 48: edge-exact (256 >= 96)
+SHARD_HALO = 2 * 16 + 16  # generator_receptive_halo at 16 blocks
+SHARD_A_SHAPES = [  # every kernel-A call of one slab's window (352 rows)
+    ((1, SHARD_LR[0] // 2 + 2 * SHARD_HALO, SHARD_LR[1], 64), 64),
+    ((1, SHARD_LR[0] // 2 + 2 * SHARD_HALO, SHARD_LR[1], 64), 256),
+    ((1, SHARD_LR[0] + 4 * SHARD_HALO, 2 * SHARD_LR[1], 64), 256),
+    ((1, 2 * SHARD_LR[0] + 8 * SHARD_HALO, 4 * SHARD_LR[1], 64), 256)]
+DP_RANKS = 2  # processes sharing the one card in phase 10
+DP_TRAIN_SHAPES = [((TRAIN_B // DP_RANKS, *shape[1:]), cout)
+                   for shape, cout in TRAIN_A_SHAPES]
+LANE_ITERS = 10  # the sharded DIP's iterations
+# the sharded DIP's PSNR gap to the lane batch after one step, and its
+# loss's relative gap then, measured on an H100: 1.26e-3 dB and 1.22e-3
+# (a rerun of the batch 1.2e-4 dB, 3.5e-5; the batch at learning rate 0
+# 1.13 dB, 0.197)
+SHARDED_DIP_DB = 0.03
+SHARDED_DIP_LOSS = 0.02
+# D's reduced gradient at W=2, f32, kernels A and B: its gradient through
+# the fake group is ill-conditioned in f32 (port f32 against f64 3.5e-3,
+# tests/test_torch_gan_train.py); measured 3.05e-3 on an H100
+DP_D_GRAD_REL = 1e-2
+# both nets' in the f64 exact step: G's output and D's logits are f32 by
+# design (as tpusr), which rounds the f64 nets' differences up; measured
+# G 3.4e-8, D 1.0e-5 on an H100
+EXACT_GRAD_REL = 1e-4
+# a g_fuse='train' step's launches by counter (TRAIN_STEP_LAUNCHES by
+# profiler name)
+STEP_COUNTS = {"fused_conv3x3_fwd": 72, "fused_conv3x3_wgrad": 36}
+
+
+def train_batch(seed=0):
+    """bench.py's gan_train patch shapes, seeded: LR (8, 24, 24, 3) in
+    [0, 1], HR (8, 192, 192, 3) in [-1, 1]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lr = torch.rand(TRAIN_B, TRAIN_LR, TRAIN_LR, 3, generator=gen,
+                    device="cuda")
+    hr = torch.rand(TRAIN_B, TRAIN_HR, TRAIN_HR, 3, generator=gen,
+                    device="cuda") * 2 - 1
+    return lr, hr
+
+
+def gan_state(cfg):
+    from tpusr_torch.engine.gan import create_gan_state
+
+    return create_gan_state(cfg, cfg.pre_train_lr,
+                            generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+
+
+def state_err(a, b):
+    """Largest abs difference over both nets' parameters and statistics,
+    and the largest relative one (against the larger magnitude)."""
+    worst, rel = 0.0, 0.0
+    for net in ("G", "D"):
+        sa = getattr(a, net).state_dict()
+        for k, v in getattr(b, net).state_dict().items():
+            d = (sa[k].double() - v.double()).abs()
+            worst = max(worst, float(d.max()))
+            mag = torch.maximum(sa[k].double().abs(), v.double().abs())
+            rel = max(rel, float((d / mag.clamp(min=1e-30)).max()))
+    return worst, rel
+
+
+class exact_convs:
+    """cuDNN deterministic and without TF32 inside the block, so that two
+    routes through the same convs round alike."""
+
+    def __enter__(self):
+        b = torch.backends
+        self.saved = (b.cudnn.deterministic, b.cudnn.benchmark,
+                      b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.deterministic, b.cudnn.benchmark = True, False
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = torch.backends
+        (b.cudnn.deterministic, b.cudnn.benchmark, b.cudnn.allow_tf32,
+         b.cuda.matmul.allow_tf32) = self.saved
+
+
+def host_ms(fn, n, warmup=2, barrier=None):
+    """Host clock per call over n calls after warmup, synchronized (and
+    behind a group barrier when given)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if barrier is not None:
+        barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def check_native_loader():
+    """Phase 10a: the native loader's status; where it builds, byte for
+    byte the PIL path's arrays on the phase-5 valid tree and the phase-8
+    train tree."""
+    from tpusr_torch import native
+    from tpusr_torch.data import div2k
+
+    status = native.status()
+    print(f"phase 10: native loader {status}")
+    if not native.available():
+        print("native loader unavailable here: get_image_pair decodes "
+              "through PIL (the same bytes; a host path, no device)")
+        return status, 0
+    checked = 0
+    with tempfile.TemporaryDirectory() as valid, \
+            tempfile.TemporaryDirectory() as train:
+        write_valid_tree(valid)
+        write_train_tree(train)
+        for root, split in ((valid, "valid"), (train, "train")):
+            hr_dir = os.path.join(root, f"DIV2K_{split}_HR")
+            lr_dir = os.path.join(root, f"DIV2K_{split}_LR_x8")
+            for name in sorted(os.listdir(hr_dir)):
+                for down in (False, True):
+                    cfg = div2k.DatasetConfig(LR_dir=lr_dir, HR_dir=hr_dir,
+                                              scale_factor=8,
+                                              downsample=down)
+                    hr_p = os.path.join(hr_dir, name)
+                    lr_p = os.path.join(lr_dir, name[:-4] + "x8.png")
+                    got = native.load_pair(hr_p, lr_p, 8, down)
+                    want = div2k._pil_pair(cfg, hr_p, lr_p)
+                    for a, b in zip(got, want):
+                        if a.shape != b.shape or not np.array_equal(a, b):
+                            raise AssertionError(f"native loader differs "
+                                                 f"from PIL on {hr_p}")
+                    checked += 1
+    print(f"native loader: {checked} pairs byte-identical to PIL")
+    return status, checked
+
+
+def check_dp_world1(steps=5):
+    """Phase 10b: NCCL at world size 1 in this process. make_dp_train_step
+    at bench.py's gan_train shapes (batch 8, 192^2 HR, 16 blocks, seed 0),
+    g_fuse='train', bf16 (tpusr's defaults) and f32: losses, both nets and
+    their statistics equal to gan_train_step's from the same state (cuDNN
+    deterministic, no TF32), 72 kernel-A and 36 kernel-B launches per
+    step; then ms/step of both, host clock over ``steps`` after 2, in ABBA
+    order; and sharded_generator_forward with one shard equal to
+    generator_forward."""
+    import dataclasses
+    from tpusr_torch.engine.gan import (GANTrainConfig, gan_train_step,
+                                        generator_forward)
+    from tpusr_torch.parallel.gan_dp import make_dp_train_step
+    from tpusr_torch.parallel.mesh import make_mesh
+    from tpusr_torch.parallel.spatial import sharded_generator_forward
+
+    mesh = make_mesh(devices="cuda")
+    print(f"phase 10: {mesh} over NCCL {torch.cuda.nccl.version()}")
+    counts = {k: 0 for k in read_counts()}
+    rows = {}
+    for label, dtype in (("bf16", "bfloat16"), ("f32", None)):
+        cfg = dataclasses.replace(GANTrainConfig(dtype="bfloat16"),
+                                  dtype=dtype, g_fuse="train")
+        lr, hr = train_batch()
+        with exact_convs():
+            single, dp = gan_state(cfg), gan_state(cfg)
+            single, ls = gan_train_step(single, lr, hr, cfg)
+            place, step = make_dp_train_step(mesh, cfg, cfg.pre_train_lr)
+            dp = place(dp)
+            reset_counts()
+            dp, ld = step(dp, lr, hr)
+            torch.cuda.synchronize()
+            c = read_counts()
+        loss_err = max(abs(float(ls[k]) - float(ld[k])) for k in ls)
+        err, rel = state_err(single, dp)
+        grad_rel = moments_rel(single, dp)
+        print(f"DP step at W=1 (NCCL), {label}, g_fuse=train: losses "
+              f"{ {k: float(v) for k, v in ld.items()} }, max abs vs "
+              f"gan_train_step: losses {loss_err:.3e}, parameters and "
+              f"statistics {err:.3e} (relative {rel:.3e}), first moments "
+              f"(relative L2) {grad_rel}; launches {c}")
+        if c != {**{k: 0 for k in c}, **STEP_COUNTS}:
+            raise AssertionError(f"DP step {label}: launches {c}")
+        # f32 within 1e-5; bf16 storage within its rounding (2^-8); the
+        # gradients (first moments) within 1e-6
+        if not (loss_err <= 1e-5 and (err <= 1e-5 if dtype is None
+                                      else rel <= 2.0 ** -8)
+                and max(grad_rel.values()) <= 1e-6):
+            raise AssertionError(f"DP step at W=1 {label} differs from "
+                                 f"gan_train_step: {loss_err}, {err}, {rel}, "
+                                 f"{grad_rel}")
+        for k in counts:
+            counts[k] += c[k]
+        a = host_ms(lambda: gan_train_step(single, lr, hr, cfg), steps)
+        b = host_ms(lambda: step(dp, lr, hr), steps)
+        b2 = host_ms(lambda: step(dp, lr, hr), steps)
+        a2 = host_ms(lambda: gan_train_step(single, lr, hr, cfg), steps)
+        rows[label] = dict(single=(a, a2), dp=(b, b2))
+        print(f"DP step at W=1 {label}: {(b + b2) / 2:.3f} ms/step "
+              f"({b:.3f}, {b2:.3f}) against gan_train_step "
+              f"{(a + a2) / 2:.3f} ({a:.3f}, {a2:.3f}), ABBA, "
+              f"{(b + b2) / (a + a2):.3f}x")
+        del single, dp
+    from tpusr_torch.models.layers import BatchNorm
+    from tpusr_torch.parallel.mesh import all_reduce_grad
+
+    st = gan_state(cfg)
+    n_bn = [sum(isinstance(m, BatchNorm) for m in net.modules())
+            for net in (st.G, st.D)]
+    # forward and backward: every G BN once, every D BN in D's and in G's
+    # update; then D's and G's gradients and the losses
+    per_step = 2 * (n_bn[0] + 2 * n_bn[1]) + 3
+    buf = torch.zeros(128, device="cuda", requires_grad=True)
+    group = mesh.get_group("data")
+    us = host_ms(lambda: all_reduce_grad(buf, group).sum().backward(), 200,
+                 warmup=10) * 1e3 / 2
+    print(f"DP step collectives: {per_step} per step (BN layers: G {n_bn[0]},"
+          f" D {n_bn[1]}); one 128-float all-reduce costs {us:.1f} us on the "
+          f"host (forward and backward timed together, halved)")
+    costs = {env: collective_cost(env) for env in ("default", "0")}
+    print(f"one 128-float dist.all_reduce at W=1, host clock over 300 after "
+          f"20, in a fresh process: {costs['default']:.1f} us with torch's "
+          f"default flight recorder, {costs['0']:.1f} us with "
+          f"TORCH_FR_BUFFER_SIZE=0")
+    rows["collectives"] = dict(per_step=per_step, us_each=us,
+                               plain_us=costs)
+    del st
+    gcfg = GANTrainConfig()
+    net = srgan_generator(None)
+    x = torch.rand(1, 64, 48, 3, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    with torch.inference_mode():
+        one = sharded_generator_forward(
+            net, x, gcfg, mesh=make_mesh({"spatial": 1}, "cuda"))
+        whole = generator_forward(net, x, gcfg)
+    if not torch.equal(one, whole):
+        raise AssertionError("one shard differs from generator_forward")
+    print("sharded_generator_forward with one shard equals "
+          "generator_forward")
+    torch.distributed.destroy_process_group()
+    return counts, rows
+
+
+def collective_cost(fr_buffer):
+    """Host microseconds of one 128-float dist.all_reduce in a fresh
+    one-rank NCCL process (``--collective-child``), with torch's NCCL
+    flight recorder at its default ('default') or its buffer size set."""
+    env = dict(os.environ)
+    if fr_buffer != "default":
+        env["TORCH_FR_BUFFER_SIZE"] = fr_buffer
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--collective-child"], capture_output=True,
+                          text=True, env=env, timeout=300, check=True)
+    return float(proc.stdout.strip().splitlines()[-1])
+
+
+def collective_child():
+    from tpusr_torch.parallel.mesh import make_mesh
+
+    group = make_mesh(devices="cuda").get_group("data")
+    buf = torch.zeros(128, device="cuda")
+    us = host_ms(lambda: torch.distributed.all_reduce(buf, group=group),
+                 300, warmup=20) * 1e3
+    torch.distributed.destroy_process_group()
+    print(us)
+
+
+def dip_canvas(seed):
+    """A 512^2 HR canvas and its 64^2 LR (PIL bicubic), (1, H, W, 3) f32
+    in [0, 1]."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:512, 0:512].astype(np.float32)
+    img = np.stack([np.sin(xx / (19.0 + seed)) * np.cos(yy / 23.0),
+                    np.sin((xx + yy) / 31.0), np.cos(xx / 13.0 - yy / 17.0)],
+                   -1) * 90 + 128
+    img = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+    lr = np.asarray(Image.fromarray(img).resize((64, 64), Image.BICUBIC))
+    return (lr[None].astype(np.float32) / 255.0,
+            img[None].astype(np.float32) / 255.0)
+
+
+def shared_card_child(rank, work):
+    """Phase 10c, one of two processes on the one card in a gloo group (NCCL
+    refuses two ranks on one GPU, "Duplicate GPU detected"; gloo stages
+    every collective through host memory): the 2-shard forward, one DP
+    step at W=2 and the sharded DIP; rank 0 holds each against its
+    one-process counterpart. Results go to work/shared{rank}.pt."""
+    from tpusr_torch.engine.dip import (DIPConfig, dip_superresolve_batch)
+    from tpusr_torch.engine.gan import (GANTrainConfig, gan_train_step,
+                                        generator_forward)
+    from tpusr_torch.parallel.dip_batch import dip_superresolve_sharded
+    from tpusr_torch.parallel.gan_dp import make_dp_train_step
+    from tpusr_torch.parallel.mesh import make_mesh
+    from tpusr_torch.parallel.spatial import sharded_generator_forward
+    import dataclasses
+
+    out = {}
+    barrier = torch.distributed.barrier
+    mesh = make_mesh(devices="cuda", backend="gloo")
+    smesh = make_mesh({"spatial": DP_RANKS}, "cuda", backend="gloo")
+
+    cfg = GANTrainConfig()
+    net = srgan_generator(None)
+    lr = torch.rand(1, *SHARD_LR, 3, generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda") * 2 - 1
+    with torch.inference_mode():
+        with exact_convs():
+            reset_counts()
+            got = sharded_generator_forward(net, lr, cfg, mesh=smesh)
+            torch.cuda.synchronize()
+            out["shard_counts"] = read_counts()
+            whole = generator_forward(net, lr, cfg)
+            out["shard_err"] = abs_err(got, whole)
+        out["shard_ms"] = host_ms(lambda: sharded_generator_forward(
+            net, lr, cfg, mesh=smesh), 5, barrier=barrier)
+        barrier()
+        if rank == 0:
+            out["whole_ms"] = host_ms(lambda: generator_forward(
+                net, lr, cfg), 5)
+        barrier()
+    del net, got, whole
+
+    tcfg = GANTrainConfig(dtype=None, g_fuse="train")
+    lo, hi = train_batch(1)
+    with exact_convs():
+        place, step = make_dp_train_step(mesh, tcfg, tcfg.pre_train_lr)
+        state = place(gan_state(tcfg))
+        reset_counts()
+        state, logs = step(state, lo, hi)
+        torch.cuda.synchronize()
+        out["dp_counts"] = read_counts()
+        out["dp_losses"] = {k: float(v) for k, v in logs.items()}
+        barrier()
+        if rank == 0:
+            single, ls = gan_train_step(gan_state(tcfg), lo, hi, tcfg)
+            out["dp_loss_err"] = max(abs(float(ls[k]) - float(logs[k]))
+                                     for k in ls)
+            out["dp_err"] = state_err(single, state)
+            out["dp_grad_rel"] = moments_rel(single, state)
+            del single
+        del state
+        # the EXACT step: the reduced gradients themselves, held through
+        # the first moments
+        ecfg = GANTrainConfig(dtype=None, adv_weight=0.0)
+        place, step = make_dp_train_step(mesh, ecfg, 0.0)
+        lo64, hi64 = lo.double(), hi.double()
+        state, _ = step(place(exact_state(ecfg)), lo64, hi64)
+        barrier()
+        if rank == 0:
+            single, _ = gan_train_step(exact_state(ecfg), lo64, hi64, ecfg)
+            out["exact_grad_rel"] = moments_rel(single, state)
+            del single
+        del state
+
+    dcfg = DIPConfig(num_iter=LANE_ITERS, log_freq=1)
+    canv = [dip_canvas(s) for s in range(DP_RANKS)]
+    lr_d = np.stack([c[0] for c in canv])
+    hr_d = np.stack([c[1] for c in canv])
+
+    def gens(lanes):
+        return [torch.Generator().manual_seed(s) for s in lanes]
+
+    with exact_convs():
+        reset_counts()
+        res, curves = dip_superresolve_sharded(lr_d, hr_d,
+                                               gens(range(DP_RANKS)), dcfg,
+                                               mesh)
+        out["dip_counts"] = read_counts()
+        barrier()
+        if rank == 0:
+            # all lanes in one process, twice: the second run is the
+            # noise floor of the first (upsample and reflection-pad
+            # backward add with atomics on the card, and Adam's first
+            # step turns any gradient-sign flip into 2 lr); and a control
+            # at learning rate 0, what a sharded run that never stepped
+            # would give
+            runs = [dip_superresolve_batch(lr_d, hr_d, gens(range(DP_RANKS)),
+                                           cfg) for cfg in
+                    (dcfg, dcfg, dataclasses.replace(dcfg,
+                                                     learning_rate=0.0))]
+            out["dip"] = dict(sharded=curves_apart((res, curves), runs[0]),
+                              rerun=curves_apart(runs[1], runs[0]),
+                              control=curves_apart(runs[2], runs[0]),
+                              lanes_in_order=lanes_in_order(res, runs[0][0]),
+                              psnr_last=curves["psnr"][:, -1].tolist(),
+                              **lane_count_step(dcfg, lr_d))
+    torch.save(out, os.path.join(work, f"shared{rank}.pt"))
+
+
+def moments_rel(a, b):
+    """Relative L2 distance of b's Adam first moments from a's, per net:
+    after one step they are (1 - b1) times the step's gradients."""
+    from tpusr_torch.engine.gan import adam_moments
+
+    rel = {}
+    for net in ("G", "D"):
+        ma = adam_moments(getattr(a, f"opt_{net}"))[1]
+        mb = adam_moments(getattr(b, f"opt_{net}"))[1]
+        va = torch.cat([m.double().reshape(-1) for m in ma])
+        vb = torch.cat([m.double().reshape(-1) for m in mb])
+        rel[net] = float((vb - va).norm() / va.norm())
+    return rel
+
+
+def exact_state(cfg):
+    """gan_state in f64 at learning rate 0: a step moves no net, so its
+    first moments are the gradients at the start, of G and D alike."""
+    from tpusr_torch.engine.gan import create_gan_state
+
+    state = create_gan_state(cfg, 0.0, generator=torch.Generator()
+                             .manual_seed(0), device="cuda")
+    state.G.double()
+    state.D.double()
+    return state
+
+
+def curves_apart(a, b):
+    """How far DIP run a (result, curves) lies from run b: the pixels'
+    median abs difference and the share above 1e-3; the PSNR curves'
+    largest gap over the lanes at each head (``psnr_at``; head 0 is
+    before any step) and over all; the loss curves' largest relative gap
+    at each head (``loss_at``) and over all."""
+    diff = (a[0] - b[0]).abs().float().cpu().numpy()
+    pa, pb = a[1]["psnr"], b[1]["psnr"]
+    la, lb = np.asarray(a[1]["loss"]), np.asarray(b[1]["loss"])
+    psnr_at = np.abs(pa - pb).max(0)
+    loss_at = (np.abs(la - lb) / np.abs(lb)).max(0)
+    return dict(median=float(np.median(diff)),
+                frac=float((diff > 1e-3).mean()),
+                psnr=float(psnr_at.max()), head=float(psnr_at[0]),
+                psnr_at=psnr_at.tolist(), loss=float(loss_at.max()),
+                loss_at=loss_at.tolist())
+
+
+def lanes_in_order(res, ref):
+    """Each lane's result lies nearer the same lane of ``ref`` than any
+    other lane of it (mean abs difference)."""
+    n = res.shape[0]
+    d = [[float((res[i] - ref[j]).abs().mean()) for j in range(n)]
+         for i in range(n)]
+    return all(d[i][i] < min(d[i][j] for j in range(n) if j != i)
+               for i in range(n))
+
+
+def lane_count_step(cfg, lr_d):
+    """One lane_iteration of two lanes batched and of each lane alone, from
+    the same nets, z and noise: the gradients' relative L2 difference (the
+    largest over the lanes) and the share of parameters whose first Adam
+    update differs by more than lr / 2 (a gradient-sign flip moves a
+    parameter 2 lr apart)."""
+    import dataclasses
+    from tpusr_torch.engine import dip
+
+    cfg = dataclasses.replace(cfg, conv_fusion="off")
+    n = lr_d.shape[0]
+    nets = [dip.build(cfg, torch.Generator().manual_seed(i))[0]
+            for i in range(n)]
+    down = dip.build(cfg)[1].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    z = torch.rand(n, 1, cfg.input_depth, 512, 512, generator=gen,
+                   device="cuda") * cfg.input_noise_scale
+    noise = torch.randn(z.shape, generator=gen, device="cuda")
+    lrs = torch.from_numpy(lr_d).permute(0, 1, 4, 2, 3).cuda()
+
+    def step(lanes):
+        params = dip.stack_lanes([nets[i] for i in lanes], "cuda")
+        opt = torch.optim.Adam(params.values(), lr=cfg.learning_rate)
+        dip.lane_iteration(nets[0].cuda(), down, params, opt, z[lanes],
+                           noise[lanes], lrs[lanes], cfg.reg_noise_std)
+        return params
+
+    both = step(list(range(n)))
+    alone = [step([i]) for i in range(n)]
+    grad_rel, moved, total = 0.0, 0, 0
+    with torch.no_grad():
+        for i in range(n):
+            g1 = torch.cat([alone[i][k].grad[0].reshape(-1) for k in both])
+            g2 = torch.cat([both[k].grad[i].reshape(-1) for k in both])
+            grad_rel = max(grad_rel, float((g2 - g1).norm() / g1.norm()))
+            for k, p in both.items():
+                moved += int(((p[i] - alone[i][k][0]).abs()
+                              > cfg.learning_rate / 2).sum())
+            total += g1.numel()
+    return dict(grad_rel=grad_rel, flipped=moved / total, params=total)
+
+
+def run_shared_card():
+    """Phase 10c: spawn the two processes, read and hold their results:
+    the 2-shard forward within 1e-4 of the whole (TF32 off) with 36 A
+    launches per rank, the W=2 DP step against one process (losses 5e-4,
+    parameters 1e-3, tests/test_parallel.py's bounds), the sharded DIP
+    against the lane batch by tpusr's criteria (tests/test_parallel.py:
+    183-190)."""
+    from tpusr_torch.parallel.mesh import spawn
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        spawn(shared_card_child, DP_RANKS, (work,), backend="gloo",
+              store_dir=work)
+        res = [torch.load(os.path.join(work, f"shared{r}.pt"),
+                          weights_only=False) for r in range(DP_RANKS)]
+    r0 = res[0]
+    shard = {k: sum(r["shard_counts"][k] for r in res)
+             for k in r0["shard_counts"]}
+    dp = {k: sum(r["dp_counts"][k] for r in res) for k in r0["dp_counts"]}
+    print(f"2 processes on one card (gloo, host-staged): 2-shard forward "
+          f"of a {SHARD_LR[0]} x {SHARD_LR[1]} LR, max abs vs the whole "
+          f"{max(r['shard_err'] for r in res):.3e} (TF32 off; tolerance "
+          f"1e-4); {r0['shard_ms']:.3f} ms against the whole forward "
+          f"{r0['whole_ms']:.3f} ms ({r0['shard_ms'] / r0['whole_ms']:.3f}x,"
+          f" host clock, 5 after 2); launches per rank "
+          f"{[r['shard_counts'] for r in res]}")
+    print(f"DP step at W=2 (global batch 8, f32, g_fuse=train): losses "
+          f"{r0['dp_losses']}, vs one process: losses "
+          f"{r0['dp_loss_err']:.3e}, parameters and statistics "
+          f"{r0['dp_err'][0]:.3e}, first moments (relative L2) "
+          f"{r0['dp_grad_rel']}; launches per rank "
+          f"{[r['dp_counts'] for r in res]}")
+    print(f"exact DP step at W=2 (f64, lr 0, adv_weight 0, cuDNN): first "
+          f"moments vs one process (relative L2) {r0['exact_grad_rel']}")
+    d = r0["dip"]
+    print(f"sharded DIP, {DP_RANKS} lanes x {LANE_ITERS} iterations at 512^2,"
+          f" full width, f32 (TF32 off), against all lanes batched in one "
+          f"process: {d['sharded']}; that batch run again against itself: "
+          f"{d['rerun']}; the batch at learning rate 0 against it: "
+          f"{d['control']} (median / share above 1e-3 of the pixels' abs "
+          f"difference; PSNR curves' largest gap, at the first head; loss "
+          f"curves' largest relative gap); lanes in order "
+          f"{d['lanes_in_order']}; final "
+          f"PSNR {d['psnr_last']}; lane batch, one iteration, batched "
+          f"against alone: "
+          f"gradients {d['grad_rel']:.3e} apart (relative L2), first Adam "
+          f"update apart by more than lr/2 on {d['flipped']:.3e} of "
+          f"{d['params']} parameters; launches "
+          f"{[r['dip_counts'] for r in res]}")
+    zero = {k: 0 for k in shard}
+    for r in res:
+        if not r["shard_err"] <= 1e-4:
+            raise AssertionError(f"2-shard forward: {r['shard_err']}")
+        if r["shard_counts"] != {**zero, "fused_conv3x3_fwd": 36}:
+            raise AssertionError(f"2-shard forward launches "
+                                 f"{r['shard_counts']}")
+        if r["dp_counts"] != {**zero, **STEP_COUNTS}:
+            raise AssertionError(f"DP step launches {r['dp_counts']}")
+        if r["dip_counts"] != zero:
+            raise AssertionError(f"sharded DIP launched {r['dip_counts']}")
+        if r["dp_losses"] != r0["dp_losses"]:
+            raise AssertionError("the ranks logged different losses")
+    # losses and parameters at tests/test_parallel.py's bounds (which
+    # Adam's sign-like first step passes whatever the gradients), D's
+    # reduced gradient (taken before any update) through its first
+    # moments, and both nets' in the exact f64 step (the all-reduce's f32
+    # buffer rounds to ~6e-8)
+    if not (r0["dp_loss_err"] < 5e-4 and r0["dp_err"][0] < 1e-3
+            and r0["dp_grad_rel"]["D"] < DP_D_GRAD_REL
+            and max(r0["exact_grad_rel"].values()) < EXACT_GRAD_REL):
+        raise AssertionError(f"DP step at W=2 differs: {r0['dp_loss_err']},"
+                             f" {r0['dp_err']}, {r0['dp_grad_rel']}, "
+                             f"{r0['exact_grad_rel']}")
+    # the sharded DIP against the lane batch: the same start (head 0,
+    # 1e-4 dB), the lanes in order, and the same first step: head 1's
+    # PSNR and loss within SHARDED_DIP_DB / SHARDED_DIP_LOSS, bounds that
+    # the batch at learning rate 0 (a sharded run that never stepped)
+    # must exceed. Later heads are printed, not held: upsample and
+    # reflection-pad backward add with atomics, so a rerun of the same
+    # batch parts from it by tenths of a dB within 10 iterations
+    c, ctl = d["sharded"], d["control"]
+    if not (c["head"] < 1e-4 and d["lanes_in_order"]
+            and c["psnr_at"][1] < SHARDED_DIP_DB
+            and c["loss_at"][1] < SHARDED_DIP_LOSS
+            and ctl["psnr_at"][1] > SHARDED_DIP_DB
+            and ctl["loss_at"][1] > SHARDED_DIP_LOSS
+            and np.isfinite(d["psnr_last"]).all()):
+        raise AssertionError(f"sharded DIP differs from the lane batch: {d}")
+    # the lane batch itself: one iteration's gradients against each lane
+    # alone, the DIP net's 1e-3 gradient gate of phase 3
+    if not d["grad_rel"] < 1e-3:
+        raise AssertionError(f"lane batch gradients: {d['grad_rel']}")
+    return shard, dp, dict(shard_ms=r0["shard_ms"], whole_ms=r0["whole_ms"])
+
+
+def time_lanes(iters=10, warmup=3):
+    """Phase 10d: ms per image per DIP iteration at 512^2, full width, f32:
+    the lane batch (N = 2 and 4 lanes, conv_fusion 'off' as tpusr forces)
+    against the loop of dip_superresolve_scan_bucketed (one image's
+    dip_iteration after another; conv_fusion 'auto', kernels A and B, and
+    'off'); CUDA events over ``iters`` after ``warmup``."""
+    import dataclasses
+    from tpusr_torch.engine import dip
+
+    base = dip.DIPConfig()
+    lr_img, _ = dip_canvas(0)
+    lr = torch.from_numpy(lr_img).permute(0, 3, 1, 2).cuda()
+    rows = {}
+    for fusion in ("auto", "off"):
+        cfg = dataclasses.replace(base, conv_fusion=fusion)
+        net, down = dip.build(cfg, torch.Generator().manual_seed(0))
+        net.to("cuda", memory_format=torch.channels_last)
+        down.to("cuda")
+        opt = dip.make_optimizer(net, cfg)
+        z = torch.rand(1, 512, 512, 32, device="cuda").permute(0, 3, 1, 2)
+        rows[f"loop, conv_fusion {fusion}"] = time_ms(
+            lambda: dip.dip_iteration(net, down, opt, z, torch.randn_like(z),
+                                      lr, cfg.reg_noise_std), iters, warmup)
+        del net, opt
+    for n in (2, 4):
+        cfg = dataclasses.replace(base, conv_fusion="off")
+        nets = [dip.build(cfg, torch.Generator().manual_seed(i))[0]
+                for i in range(n)]
+        params = dip.stack_lanes(nets, "cuda")
+        template = nets[0].cuda()
+        opt = torch.optim.Adam(params.values(), lr=cfg.learning_rate)
+        z = torch.rand(n, 1, 32, 512, 512, device="cuda") * 0.1
+        lrs = lr[None].expand(n, -1, -1, -1, -1).contiguous()
+        rows[f"lanes, N={n}"] = time_ms(
+            lambda: dip.lane_iteration(template, down, params, opt, z,
+                                       torch.randn_like(z), lrs,
+                                       cfg.reg_noise_std),
+            iters, warmup) / n
+        del nets, params, template, opt, z
+        torch.cuda.empty_cache()
+    print("DIP iteration per image, 512^2, full width, f32 (CUDA events, "
+          f"{iters} after {warmup}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in rows.items()))
+    return rows
+
+
+def run_multi_device():
+    """Phase 10: the native loader, NCCL at world size 1, two processes on
+    the card, the lane-batch times."""
+    native_status, _ = check_native_loader()
+    dp1, dp1_rows = check_dp_world1()
+    shard, dp2, shard_times = run_shared_card()
+    lanes = time_lanes()
+    paths = {"srgan eval sharded": shard,
+             "srgan train dp": {k: dp1[k] + dp2[k] for k in dp1}}
+    return paths, dict(native=native_status, dp_w1=dp1_rows,
+                       shard=shard_times, lanes=lanes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1958,6 +2628,9 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--train-cli-child"]:
         train_cli_child(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] == ["--collective-child"]:
+        collective_child()
         return 0
     from tpusr_torch.cli import dip as cli
     from tpusr_torch.ops import _build
@@ -1977,12 +2650,17 @@ def main() -> int:
     rrdb_worst = check_rrdb_kernels()
     worst["dense_block"] = rrdb_worst["dense_block"]
     train_worst = check_train_kernels()
+    dp_worst = check_train_kernels(DP_TRAIN_SHAPES)
     worst["fused_conv3x3_fwd"] = max(worst["fused_conv3x3_fwd"],
                                      rrdb_worst["fused_conv3x3_fwd"],
                                      check_srgan_kernels(),
-                                     train_worst["fused_conv3x3_fwd"])
+                                     check_srgan_kernels(SHARD_A_SHAPES,
+                                                         "2-shard slab"),
+                                     train_worst["fused_conv3x3_fwd"],
+                                     dp_worst["fused_conv3x3_fwd"])
     worst["fused_conv3x3_wgrad"] = max(worst["fused_conv3x3_wgrad"],
-                                       train_worst["fused_conv3x3_wgrad"])
+                                       train_worst["fused_conv3x3_wgrad"],
+                                       dp_worst["fused_conv3x3_wgrad"])
     worst.update(check_degrade_kernels())
     print(f"phase 2: kernels agree with their plain versions; largest f32 "
           f"abs errors {worst}")
@@ -2078,6 +2756,13 @@ def main() -> int:
     time_variants()
     paths["srgan eval tiled"], _ = check_tiled_eval()
     print("phase 9: DIP variants and tiled eval ran through kernels A and B")
+
+    t10 = time.perf_counter()
+    multi, _ = run_multi_device()
+    paths.update(multi)
+    print(f"phase 10: multi-device paths ran (sharded eval through kernel "
+          f"A, data-parallel training through A and B) in "
+          f"{time.perf_counter() - t10:.1f} s")
 
     replaces = {"fused_conv3x3_fwd": "tpusr/ops/pallas_conv.py:72",
                 "fused_conv3x3_wgrad": "tpusr/ops/pallas_conv.py:297",

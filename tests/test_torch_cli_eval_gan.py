@@ -80,27 +80,40 @@ def test_cli_agrees_with_tpusr(tree, tmp_path, noise):
 
 
 @pytest.mark.parametrize("flag", ["--tiles", "--spatial_shards"])
-def test_cli_refuses_unported_flags(tree, tmp_path, capsys, flag):
-    """--tiles 3 (exact overlap-and-discard tiling) writes the PNGs a run
-    without tiles writes; --spatial_shards needs several devices and still
-    refuses."""
+def test_cli_refuses_unported_flags(tree, tmp_path, flag):
+    """--tiles 3 (exact overlap-and-discard tiling, one process) and
+    --spatial_shards 2 (two row slabs with halo exchange; launched plainly
+    on the CPU the CLI spawns its two gloo ranks, rank 0 writes) write
+    the PNGs a plain run writes. The shards' image is tall enough for
+    their edge-exact geometry: an 80-row LR in slabs of 40 = 2 halo (a
+    shorter one falls back to zero-filled edge halos, with a warning, as
+    in tpusr)."""
     root, pth = tree
-    if flag == "--tiles":
-        _, plain = _run(cli.run, root, pth, tmp_path / "plain",
-                        ("--device", "cpu"))
-        got, tiled = _run(cli.run, root, pth, tmp_path / "tiled",
-                          ("--device", "cpu", "--tiles", "3"))
+    names = ("0801.png", "0802.png")
+    if flag == "--spatial_shards":
+        root = tmp_path / "tall"
+        for d in ("HR", "LR_x8"):
+            (root / f"DIV2K_valid_{d}").mkdir(parents=True)
+        img = np.random.default_rng(1).integers(0, 256, (1280, 64, 3),
+                                                dtype=np.uint8)
+        Image.fromarray(img).save(root / "DIV2K_valid_HR" / "0901.png")
+        Image.fromarray(img).resize((8, 160), Image.BICUBIC).save(
+            root / "DIV2K_valid_LR_x8" / "0901x8.png")
+        names = ("0901.png",)
+    _, plain = _run(cli.run, root, pth, tmp_path / "plain",
+                    ("--device", "cpu"))
+    got, split = _run(cli.run, root, pth, tmp_path / "split",
+                      ("--device", "cpu", flag, "3" if flag == "--tiles"
+                       else "2"))
+    if flag == "--spatial_shards":
+        assert got is None  # the spawned ranks ran the evaluation
+        assert any(f.endswith("_log.txt") for f in os.listdir(split))
+    else:
         assert got["Number of images evaluated over"] == 2
-        for name in ("0801.png", "0802.png"):
-            np.testing.assert_array_equal(
-                np.asarray(Image.open(tiled / "images" / name)),
-                np.asarray(Image.open(plain / "images" / name)))
-        return
-    with pytest.raises(SystemExit) as exc:
-        cli.run(["--data_dir", str(tmp_path), "--out_dir", str(tmp_path),
-                 "--model_path", "G.pth", flag, "2", "--device", "cpu"])
-    assert exc.value.code == 1
-    assert "not yet ported" in capsys.readouterr().out
+    for name in names:
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(split / "images" / name)),
+            np.asarray(Image.open(plain / "images" / name)))
 
 
 def test_cli_needs_a_card_for_cuda(tree, tmp_path):

@@ -149,11 +149,22 @@ def test_orbax_directories_are_refused(tmp_path):
         load_train_state(str(tmp_path / "pre_trained_state"), state)
 
 
-def test_data_parallel_is_not_ported(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        train_gan.run(["--data_dir", str(tmp_path), "--out_dir",
-                       str(tmp_path), "--data_parallel", "True"])
-    assert "not yet ported" in capsys.readouterr().out
+def test_data_parallel_is_not_ported(tree, tmp_path, capsys):
+    """--data_parallel True, launched plainly on the CPU: one rank (the
+    one-rank group make_mesh sets up), the whole training and tpusr's file
+    set; two ranks run in tests/test_torch_parallel.py."""
+    import torch.distributed as dist
+
+    try:
+        out_dir = _run(tree, tmp_path / "out", "--data_parallel", "True")
+        assert "Data-parallel over 1 devices" in capsys.readouterr().out
+        files = set(os.listdir(out_dir))
+        assert {"pre_trained_state", "fine_tuned_srgan_G.pth",
+                "fine_tuned_srgan_D.pth"} <= files
+        assert np.isfinite(float(_log(out_dir)["Final Generator loss"]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_parser_matches_tpusr():

@@ -33,7 +33,10 @@ def test_importing_the_port_loads_no_jax_or_tpusr():
               "tpusr_torch.models.vgg19", "tpusr_torch.engine.losses",
               "tpusr_torch.engine.gan_epochs", "tpusr_torch.cli.train_gan",
               "tpusr_torch.engine.lbfgs", "tpusr_torch.utils.profiling",
-              "tpusr_torch.parallel.spatial"):
+              "tpusr_torch.parallel.spatial", "tpusr_torch.parallel.mesh",
+              "tpusr_torch.parallel.gan_dp", "tpusr_torch.parallel.dip_batch",
+              "tpusr_torch.native", "tpusr_torch.native.bench",
+              "tpusr_torch.utils.convert"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -448,3 +448,121 @@ def test_tiled_generator_forward_matches_the_whole_image(gen):
     assert fc.LAUNCHES["fused_conv3x3_fwd"] > before
     assert tiled.shape == whole.shape == (1, 560, 72, 3)
     assert float((tiled - whole).abs().max()) <= 1e-4
+
+
+def test_dp_step_at_world_size_1_is_the_single_step(gen):
+    """make_dp_train_step over a one-rank NCCL group (g_fuse='train':
+    kernels A and B) gives gan_train_step's losses and state bit for bit,
+    with cuDNN deterministic and TF32 off."""
+    import torch.distributed as dist
+
+    from tpusr_torch.engine import gan as pg
+    from tpusr_torch.parallel.gan_dp import make_dp_train_step
+    from tpusr_torch.parallel.mesh import make_mesh
+
+    cfg = pg.GANTrainConfig(factor=4, batch_size=8, hr_patch=32,
+                            residual_blocks_count=2, g_fuse="train",
+                            d_moments="f32", d_params="f32")
+
+    def state():
+        return pg.create_gan_state(cfg, 1e-4, generator=torch.Generator()
+                                   .manual_seed(0), device="cuda")
+
+    lo = torch.rand(8, 8, 8, 3, generator=gen, device="cuda")
+    hi = torch.rand(8, 32, 32, 3, generator=gen, device="cuda") * 2 - 1
+    torch.backends.cudnn.deterministic = True
+    try:
+        single, ls = pg.gan_train_step(state(), lo, hi, cfg)
+        place, step = make_dp_train_step(make_mesh(devices="cuda"), cfg,
+                                         1e-4)
+        before = dict(fc.LAUNCHES)
+        dp, ld = step(place(state()), lo, hi)
+        torch.cuda.synchronize()
+        # 7 fused convs at 2 blocks, x4: forward and dgrad (A), wgrad (B)
+        assert fc.LAUNCHES["fused_conv3x3_fwd"] - before[
+            "fused_conv3x3_fwd"] == 14
+        assert fc.LAUNCHES["fused_conv3x3_wgrad"] - before[
+            "fused_conv3x3_wgrad"] == 7
+        for k in ls:
+            assert float(ls[k]) == float(ld[k]), k
+        for net in ("G", "D"):
+            want = getattr(single, net).state_dict()
+            for k, v in getattr(dp, net).state_dict().items():
+                assert torch.equal(v, want[k]), (net, k)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sharded_on_the_card(rank, work):
+    """A worker of a two-process gloo group sharing the card."""
+    import os
+
+    from tpusr_torch.engine.gan import GANTrainConfig, build_generator
+    from tpusr_torch.parallel.mesh import make_mesh
+    from tpusr_torch.parallel.spatial import sharded_generator_forward
+
+    torch.backends.cudnn.allow_tf32 = False
+    config = GANTrainConfig(factor=4, residual_blocks_count=2)
+    g = build_generator(config, "cuda", torch.Generator().manual_seed(0))
+    lr = torch.load(os.path.join(work, "lr.pt")).cuda()
+    before = fc.LAUNCHES["fused_conv3x3_fwd"]
+    with torch.inference_mode():
+        out = sharded_generator_forward(
+            g, lr, config, halo=12,
+            mesh=make_mesh({"spatial": 2}, "cuda", backend="gloo"))
+    torch.cuda.synchronize()
+    torch.save({"out": out.cpu(),
+                "launches": fc.LAUNCHES["fused_conv3x3_fwd"] - before},
+               os.path.join(work, f"r{rank}.pt"))
+
+
+def test_sharded_forward_two_processes_on_the_card(gen, tmp_path):
+    """sharded_generator_forward over two processes that share the card
+    (gloo: NCCL refuses two ranks on one GPU), slab 48 >= 2 * halo 24:
+    every rank returns the whole image, equal to generator_forward (TF32
+    off, 1e-5), each through kernel A."""
+    import os
+
+    from tpusr_torch.engine.gan import (GANTrainConfig, build_generator,
+                                        generator_forward)
+    from tpusr_torch.parallel.mesh import spawn
+
+    lr = torch.rand(1, 96, 16, 3, generator=gen, device="cuda")
+    torch.save(lr.cpu(), tmp_path / "lr.pt")
+    spawn(_sharded_on_the_card, 2, (str(tmp_path),), backend="gloo",
+          store_dir=str(tmp_path))
+    config = GANTrainConfig(factor=4, residual_blocks_count=2)
+    g = build_generator(config, "cuda", torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        whole = generator_forward(g, lr, config).cpu()
+    for r in range(2):
+        got = torch.load(os.path.join(tmp_path, f"r{r}.pt"))
+        assert got["launches"] > 0
+        assert float((got["out"] - whole).abs().max()) <= 1e-5
+
+
+def test_lane_batch_on_the_card(gen):
+    """The DIP lane batch on the card (conv_fusion 'off': no kernel): each
+    lane starts as its single-image run (first PSNR head within 1e-4 dB)
+    and its curves stay within tpusr's 0.5 dB."""
+    import numpy as np
+
+    from tpusr_torch.engine import dip
+
+    cfg = dip.DIPConfig(factor=4, num_iter=20, log_freq=10, input_depth=8,
+                        skip_n33d=16, skip_n33u=16, skip_n11=4,
+                        num_scales=3, conv_fusion="off")
+    lr = torch.rand(2, 1, 16, 16, 3, generator=gen, device="cuda")
+    hr = torch.rand(2, 1, 64, 64, 3, generator=gen, device="cuda")
+    before = dict(fc.LAUNCHES)
+    res, curves = dip.dip_superresolve_batch(
+        lr, hr, [torch.Generator().manual_seed(i) for i in range(2)], cfg)
+    assert dict(fc.LAUNCHES) == before
+    assert res.shape == (2, 1, 64, 64, 3) and bool(torch.isfinite(res).all())
+    for i in range(2):
+        _, one = dip.dip_superresolve(lr[i], hr[i], cfg,
+                                      torch.Generator().manual_seed(i))
+        assert abs(curves["psnr"][i, 0] - one["psnr"][0]) < 1e-4
+        np.testing.assert_allclose(curves["psnr"][i], one["psnr"], atol=0.5)

@@ -11,6 +11,7 @@ A copy of tpusr/cli/common.py, so the port parses and validates the same way.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from datetime import datetime
@@ -65,3 +66,56 @@ def check_num_images(n: int) -> None:
         print("Please provide a valid number of images to use with "
               "--num_images=-1 for entire dataset or --num_images > 0")
         sys.exit(1)
+
+
+def planned_ranks(default: int) -> int:
+    """The world size a multi-device run will have: the group's when one
+    is initialised, torchrun's WORLD_SIZE, else ``default`` (what a plain
+    launch spawns)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return default
+
+
+def join_ranks(entry, argv, n: int, device: str) -> bool:
+    """Make this process one of the ``n`` ranks that run ``entry(argv)``.
+
+    In an initialised group (a caller's, or torchrun's environment, which
+    is joined here) this process is a rank: True. A plain launch with n > 1
+    spawns the n ranks (each calls ``entry(argv)`` in a group of its own)
+    and returns False once they have finished; n == 1 runs here, the
+    one-rank group set up by ``make_mesh``.
+    """
+    import torch.distributed as dist
+
+    from tpusr_torch.parallel.mesh import init_distributed, spawn
+
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" in os.environ:
+        init_distributed(device=device)
+        return True
+    if n == 1:
+        return True
+    spawn(_rank_entry, n, (entry, argv), device=device)
+    return False
+
+
+def _rank_entry(rank, entry, argv):
+    entry(argv)
+
+
+@contextlib.contextmanager
+def quiet_unless_rank0():
+    """A block in which ranks other than 0 print nothing."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_rank() != 0:
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            yield
+    else:
+        yield

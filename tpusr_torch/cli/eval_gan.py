@@ -15,8 +15,12 @@ tree, PNGs and ``*_log.txt`` as the JAX CLI. As there, HR images are in
 data_range 1.0; averages divide by the images evaluated; tanh output maps
 [-1, 1] -> [0, 255] before the PNG cast. --tiles N runs each image as N
 exact overlap-and-discard row tiles in one batched forward
-(``tpusr_torch.parallel.spatial``). --spatial_shards above 1 (several
-devices) is not ported yet and exits with a message.
+(``tpusr_torch.parallel.spatial``). --spatial_shards N splits each image
+into N row slabs, one per rank, with halo rows swapped between
+neighbours (``sharded_generator_forward``); every rank ends with the
+whole image and rank 0 alone prints and writes the images and the log.
+Under torchrun the CLI joins the launched group (of N ranks); launched
+plainly it spawns N ranks, one per card (N processes on the CPU).
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import warnings
 
 import torch
 
-from tpusr_torch.cli.common import (check_num_images, require_dir, str2bool,
-                                    timestamp, validate_noise)
+from tpusr_torch.cli.common import (check_num_images, join_ranks,
+                                    quiet_unless_rank0, require_dir,
+                                    str2bool, timestamp, validate_noise)
 from tpusr_torch.data.div2k import GANDIV2KDataset
 from tpusr_torch.device import resolve_device
 from tpusr_torch.engine.gan import (GANTrainConfig, build_generator,
@@ -45,7 +50,9 @@ from tpusr_torch.io.images import save_image, to_uint8
 from tpusr_torch.io.logs import save_log
 from tpusr_torch.models.lpips import make_lpips
 from tpusr_torch.models.srgan import N_SHUFFLES
-from tpusr_torch.parallel.spatial import tiled_generator_forward
+from tpusr_torch.parallel.mesh import make_mesh
+from tpusr_torch.parallel.spatial import (sharded_generator_forward,
+                                          tiled_generator_forward)
 
 
 def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
@@ -84,10 +91,18 @@ def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
 
 
 def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
-             save_images: bool = True, device="cuda", tiles: int = 1):
+             save_images: bool = True, device="cuda", tiles: int = 1,
+             spatial_shards: int = 1):
     """GAN_ISR_Batch_eval parity (eval_GAN.py:21-69); returns (metrics, n).
-    ``tiles`` > 1 runs each image through ``tiled_generator_forward``."""
+    ``tiles`` > 1 runs each image through ``tiled_generator_forward``;
+    ``spatial_shards`` > 1 through ``sharded_generator_forward`` over a
+    'spatial' mesh of that many ranks, of which rank 0 writes the
+    images."""
     dev = resolve_device(device)
+    mesh = None
+    if spatial_shards > 1:
+        mesh = make_mesh({"spatial": spatial_shards}, dev.type)
+    main = mesh is None or mesh.get_rank() == 0
     lpips_fn = make_lpips()
     running = {"psnr": 0.0, "ssim": 0.0, "lpips": 0.0}
     n = 0
@@ -96,7 +111,10 @@ def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
         lr_dev = torch.from_numpy(lr_img[None]).to(dev)
         hr_dev = torch.from_numpy(hr_img[None]).to(dev)
         with torch.inference_mode():
-            if tiles > 1:
+            if mesh is not None:
+                resolved = sharded_generator_forward(generator, lr_dev,
+                                                     config, mesh=mesh)
+            elif tiles > 1:
                 resolved = tiled_generator_forward(generator, lr_dev, config,
                                                    n_tiles=tiles)
             else:
@@ -109,7 +127,7 @@ def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
                                  if lpips_fn else float("nan"))
         n += 1
         print(f"Done evaluating over {name}.")
-        if save_images:
+        if save_images and main:
             save_image(to_uint8(resolved.cpu().numpy(), from_range="pm1"),
                        name, out_dir)
     return {
@@ -132,8 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--factor", type=int, default=8)
     parser.add_argument("--downsample", type=str2bool, default=False)
     parser.add_argument("--spatial_shards", type=int, default=1,
-                        help="not yet ported (JAX CLI: shard huge images "
-                             "across devices)")
+                        help="split each image into this many row slabs, "
+                             "one rank (card) each, with halo exchange")
     parser.add_argument("--tiles", type=int, default=1,
                         help="exact overlap-discard tiling of each image "
                              "into this many row tiles, one batched forward")
@@ -154,12 +172,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.spatial_shards > 1:
-        print(f"--spatial_shards {args.spatial_shards} is not yet ported to "
-              f"tpusr_torch (the JAX CLI, python -m tpusr.cli.eval_gan, has "
-              f"it)")
-        sys.exit(1)
+    n = args.spatial_shards
+    if n > 1:
+        cuda = torch.device(args.device).type == "cuda"
+        if cuda and torch.cuda.is_available() and \
+                torch.cuda.device_count() < n and \
+                not torch.distributed.is_initialized() and \
+                "WORLD_SIZE" not in os.environ:
+            print(f"--spatial_shards {n} needs {n} cards (one rank each); "
+                  f"{torch.cuda.device_count()} visible")
+            sys.exit(1)
+        if not join_ranks(run, argv, n, args.device):
+            return None  # the spawned ranks ran the evaluation
+    with quiet_unless_rank0():
+        return _evaluate_cli(args)
+
+
+def _evaluate_cli(args):
+    main = not (torch.distributed.is_initialized()
+                and torch.distributed.get_rank() != 0)
     require_dir(args.data_dir)
     require_dir(args.out_dir)
     check_num_images(args.num_images)
@@ -172,7 +205,8 @@ def run(argv=None):
         factor *= 2
 
     out_dir = os.path.join(args.out_dir, f"out/GANx{factor}/{timestamp()}")
-    os.makedirs(out_dir, exist_ok=True)
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
 
     noise_type = validate_noise(args)
 
@@ -192,14 +226,16 @@ def run(argv=None):
     start_time = time.time()
     eval_metrics, n = evaluate(generator, dataset, out_dir, config,
                                save_images=args.save_images,
-                               device=args.device, tiles=args.tiles)
+                               device=args.device, tiles=args.tiles,
+                               spatial_shards=args.spatial_shards)
     runtime = time.time() - start_time
 
     print(f"Done evaluating for all {n} images.")
     eval_metrics["Number of images evaluated over"] = n
     eval_metrics["Eval runtime"] = time.strftime("%H:%M:%S",
                                                  time.gmtime(runtime))
-    save_log(out_dir, **eval_metrics, **(noise_type or {}))
+    if main:
+        save_log(out_dir, **eval_metrics, **(noise_type or {}))
     return eval_metrics
 
 

@@ -17,8 +17,15 @@ chunk per log cadence; ``--host_loop True`` runs the reference-style
 per-step loop. --resume takes a state file; --pre_trained_models_path a
 directory holding ``pre_trained_state`` or the ``pre_trained_srgan_G.pth``
 / ``_D.pth`` pair (both packages write the pair). An orbax directory of
-tpusr is refused. --data_parallel is not ported yet (``parallel/``);
---profile_dir is accepted and unused, as in tpusr.
+tpusr is refused. --profile_dir is accepted and unused, as in tpusr.
+
+--data_parallel True trains data-parallel over W ranks, one per card
+(``parallel/gan_dp.py``): each step's global batch of --batch_size (which
+W must divide) is split over the ranks, BatchNorm statistics and
+gradients are the global batch's, and rank 0 alone prints, logs and
+writes the files (the same set and names). Under torchrun the CLI joins
+the launched group; launched plainly it spawns one rank per visible card
+(on the CPU, one rank).
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import time
 import numpy as np
 import torch
 
-from tpusr_torch.cli.common import (check_num_images, require_dir, str2bool,
-                                    timestamp)
+from tpusr_torch.cli.common import (check_num_images, join_ranks,
+                                    planned_ranks, quiet_unless_rank0,
+                                    require_dir, str2bool, timestamp)
 from tpusr_torch.data.div2k import GANDIV2KDataset, batch_iterator
 from tpusr_torch.device import resolve_device
 from tpusr_torch.engine.gan import (GANTrainConfig, create_gan_state,
@@ -53,13 +61,16 @@ from tpusr_torch.io.logs import save_log
 from tpusr_torch.models.lpips import make_lpips
 from tpusr_torch.models.srgan import N_SHUFFLES
 from tpusr_torch.models.vgg19 import try_load_vgg19
+from tpusr_torch.parallel.gan_dp import make_dp_forward, make_dp_train_step
+from tpusr_torch.parallel.mesh import make_mesh
 
 
 def train_phase(state, dataset, config: GANTrainConfig, num_epoch,
                 train_log_freq, content_loss, lpips_fn, ckpt_dir=None,
-                ckpt_every=0, device="cuda"):
+                ckpt_every=0, device="cuda", step_fn=None, forward_fn=None):
     """GAN_ISR_train parity (train_GAN.py:22-136), one host step at a
-    time."""
+    time; ``step_fn`` and ``forward_fn`` as ``gan_train_epochs`` takes
+    them (the data-parallel step and metrics forward)."""
     print("Starting GAN training..")
     dev = resolve_device(device)
     avg_psnrs, avg_ssims, avg_lpipss = [], [], []
@@ -73,14 +84,19 @@ def train_phase(state, dataset, config: GANTrainConfig, num_epoch,
                                             pad_to_full=True):
             lr_b = torch.from_numpy(lr_b).to(dev)
             hr_b = torch.from_numpy(hr_b).to(dev)
-            state, logs = gan_train_step(state, lr_b, hr_b, config,
-                                         content_loss)
+            if step_fn is None:
+                state, logs = gan_train_step(state, lr_b, hr_b, config,
+                                             content_loss)
+            else:
+                state, logs = step_fn(state, lr_b, hr_b)
             losses_D.append(float(logs["loss_D"]))
             losses_G.append(float(logs["loss_G"]))
             batches += 1
             if epoch % train_log_freq == 0:
                 with torch.no_grad():
-                    out = generator_forward(state.G, lr_b, config, train=True)
+                    out = (generator_forward(state.G, lr_b, config,
+                                             train=True)
+                           if forward_fn is None else forward_fn(state, lr_b))
                     epoch_psnrs.append(float(psnr_fn(out, hr_b)))
                     epoch_ssims.append(float(ssim_fn(out, hr_b,
                                                      data_range=1.0)))
@@ -110,7 +126,7 @@ def train_phase(state, dataset, config: GANTrainConfig, num_epoch,
 def train_phase_ondevice(state, stacks, config: GANTrainConfig, num_epoch,
                          train_log_freq, content_loss, lpips_fn,
                          ckpt_dir=None, ckpt_every=0, generator=None,
-                         device="cuda"):
+                         device="cuda", step_fn=None, forward_fn=None):
     """GAN_ISR_train parity as on-device epoch chunks, one per log cadence
     (metrics from the chunk's first epoch, the reference's epoch %
     log_freq == 0). The uint8 stacks are uploaded once; ``generator`` (on
@@ -128,7 +144,8 @@ def train_phase_ondevice(state, stacks, config: GANTrainConfig, num_epoch,
         start_time = time.time()
         state, logs = gan_train_epochs(
             state, lr_u8, hr_u8, valid, generator, config,
-            content_loss=content_loss, n_epochs=chunk, lpips_fn=lpips_fn)
+            content_loss=content_loss, n_epochs=chunk, lpips_fn=lpips_fn,
+            step_fn=step_fn, forward_fn=forward_fn)
         losses_D = logs["losses_D"].cpu().numpy()
         losses_G = logs["losses_G"].cpu().numpy()
         last_d, last_g = float(losses_D[-1, -1]), float(losses_G[-1, -1])
@@ -237,8 +254,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "the update's math stays f32)")
     parser.add_argument("--profile_dir", type=str)
     parser.add_argument("--data_parallel", type=str2bool, default=False,
-                        help="not yet ported (JAX CLI: shard the patch "
-                             "batch over all devices)")
+                        help="split each batch over one rank per card "
+                             "(global BatchNorm statistics and gradients; "
+                             "joins a torchrun group)")
     parser.add_argument("--host_loop", type=str2bool, default=False,
                         help="use the per-step host loop (reference-style) "
                              "instead of the on-device epoch trainer")
@@ -251,15 +269,32 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.data_parallel:
-        print("--data_parallel is not yet ported to tpusr_torch (the JAX "
-              "CLI, python -m tpusr.cli.train_gan, has it)")
-        sys.exit(1)
+        cuda = torch.device(args.device).type == "cuda"
+        n_dev = planned_ranks(torch.cuda.device_count()
+                              if cuda and torch.cuda.is_available() else 1)
+        if args.batch_size % n_dev != 0:
+            print(f"--data_parallel requires batch_size ({args.batch_size}) "
+                  f"divisible by device count ({n_dev})")
+            sys.exit(1)
+        if not join_ranks(run, argv, n_dev, args.device):
+            return None  # the spawned ranks ran the training
+    with quiet_unless_rank0():
+        return _train(args)
+
+
+def _train(args):
     require_dir(args.data_dir)
     require_dir(args.out_dir)
     check_num_images(args.num_images)
     dev = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh(devices=dev.type)
+        print(f"Data-parallel over {mesh.size()} devices")
+    main = mesh is None or mesh.get_rank() == 0
 
     LR_dir = os.path.join(args.data_dir, "DIV2K_train_LR_x8/")
     HR_dir = os.path.join(args.data_dir, "DIV2K_train_HR/")
@@ -267,7 +302,9 @@ def run(argv=None):
     if args.downsample:
         factor *= 2
     out_dir = os.path.join(args.out_dir, f"trained/GANx{factor}/{timestamp()}")
-    os.makedirs(out_dir, exist_ok=True)
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
+    ckpt_dir = out_dir if main else None
     hr_patch = args.hr_patch_size  # default 192, train_GAN.py:270
     lr_patch = hr_patch // factor
 
@@ -327,40 +364,52 @@ def run(argv=None):
 
     phase_counter = [0]
 
-    def run_phase(state, epochs):
+    def run_phase(state, epochs, lr):
         phase_counter[0] += 1
+        hooks = {}
+        if mesh is not None:  # every rank starts the phase from rank 0's
+            place, step_fn = make_dp_train_step(mesh, config, lr,
+                                                content_loss)
+            state = place(state)
+            hooks = dict(step_fn=step_fn,
+                         forward_fn=make_dp_forward(mesh, config))
         if on_device:
             # distinct crop streams per (seed, phase)
             seed = int(np.random.SeedSequence(
                 [args.seed, phase_counter[0]]).generate_state(1)[0])
             return train_phase_ondevice(
                 state, stacks, config, epochs, args.train_log_freq,
-                content_loss, lpips_fn, out_dir, args.checkpoint_every,
+                content_loss, lpips_fn, ckpt_dir, args.checkpoint_every,
                 generator=torch.Generator(device=dev).manual_seed(seed),
-                device=dev)
+                device=dev, **hooks)
         return train_phase(state, dataset, config, epochs,
                            args.train_log_freq, content_loss, lpips_fn,
-                           out_dir, args.checkpoint_every, device=dev)
+                           ckpt_dir, args.checkpoint_every, device=dev,
+                           **hooks)
 
     if not skip_pretrain:
         print("Beginnning pre-training stage..")
-        state, train_metrics = run_phase(state, config.pre_train_epochs)
+        state, train_metrics = run_phase(state, config.pre_train_epochs,
+                                         config.pre_train_lr)
         print("Done pre-training.")
-        save_log(out_dir, **train_metrics)
-        save_phase_models(state, "pre_trained", out_dir, config)
+        if main:
+            save_log(out_dir, **train_metrics)
+            save_phase_models(state, "pre_trained", out_dir, config)
         state = create_gan_state(config, config.fine_tune_lr, G=state.G,
                                  D=state.D, device=dev)
 
     print("Beginning fine-tuning stage")
-    state, train_metrics = run_phase(state, config.fine_tune_epochs)
+    state, train_metrics = run_phase(state, config.fine_tune_epochs,
+                                     config.fine_tune_lr)
     print("Done fine-tuning stage.")
 
     runtime = time.time() - start_time
     train_metrics["Number of images used for training"] = args.num_images
     train_metrics["Train runtime"] = time.strftime("%H:%M:%S",
                                                    time.gmtime(runtime))
-    save_log(out_dir, **train_metrics)
-    save_phase_models(state, "fine_tuned", out_dir, config)
+    if main:
+        save_log(out_dir, **train_metrics)
+        save_phase_models(state, "fine_tuned", out_dir, config)
     return out_dir
 
 

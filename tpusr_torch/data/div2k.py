@@ -1,8 +1,9 @@
 """DIV2K dataset pipeline — pairing, resize rules, LR noise, GAN scaling.
 
 Counterpart of ``tpusr/data/div2k.py`` (reference: dataset.py
-get_image_pair :9-62, DIV2KDataset :69-95, GANDIV2KDataset :98-177) on its
-PIL path:
+get_image_pair :9-62, DIV2KDataset :69-95, GANDIV2KDataset :98-177); the
+decode and resize chain runs natively (``tpusr_torch/native``) when the
+loader builds, else through PIL, with identical bytes:
   * HR ``<name>.png`` pairs with LR ``<name>x8.png``;
   * both images are bicubic-shrunk by 2, the LR once more with downsample;
   * HR is resized to exactly scale_factor x LR, or both shrink to the
@@ -58,11 +59,40 @@ def _add_salt_pepper_noise(rng: np.random.Generator, image: np.ndarray,
 
 def get_image_pair(config: DatasetConfig, hr_name: str,
                    rng: np.random.Generator):
-    """Load one (LR, HR, name) triple; float32 (H, W, 3) arrays in [0,1]."""
+    """Load one (LR, HR, name) triple; float32 (H, W, 3) arrays in [0,1].
+
+    The decode and resize chain runs through the native loader
+    (``tpusr_torch/native``: libpng and Pillow's fixed-point bicubic in
+    C++) when it builds, else through PIL; the bytes are identical.
+    """
+    from tpusr_torch import native
+
     filename, _ = os.path.splitext(hr_name)
-    hr = Image.open(os.path.join(config.HR_dir, hr_name)).convert("RGB")
-    lr = Image.open(os.path.join(config.LR_dir,
-                                 f"{filename}x8.png")).convert("RGB")
+    hr_path = os.path.join(config.HR_dir, hr_name)
+    lr_path = os.path.join(config.LR_dir, f"{filename}x8.png")
+    if native.available():
+        lr_np, hr_np = native.load_pair(hr_path, lr_path,
+                                        config.scale_factor,
+                                        config.downsample)
+    else:
+        lr_np, hr_np = _pil_pair(config, hr_path, lr_path)
+
+    if config.noise_type is not None:
+        if config.noise_type["type"] == "SaltAndPepper":
+            lr_np = _add_salt_pepper_noise(rng, lr_np, s=config.noise_type["s"],
+                                           p=config.noise_type["p"])
+        elif config.noise_type["type"] == "Gaussian":
+            lr_np = _add_gaussian_noise(rng, lr_np,
+                                        std=config.noise_type["std"])
+
+    return (lr_np.astype(np.float32) / 255.0,
+            hr_np.astype(np.float32) / 255.0, filename)
+
+
+def _pil_pair(config: DatasetConfig, hr_path: str, lr_path: str):
+    """The decode and resize chain through PIL: (lr_u8, hr_u8) HWC."""
+    hr = Image.open(hr_path).convert("RGB")
+    lr = Image.open(lr_path).convert("RGB")
 
     lr = _pil_shrink(lr, 2)
     hr = _pil_shrink(hr, 2)
@@ -81,19 +111,7 @@ def get_image_pair(config: DatasetConfig, hr_name: str,
         lr = lr.resize((w_lr, h_lr), Image.BICUBIC)
     else:
         hr = hr.resize((w_hr, h_hr), Image.BICUBIC)
-    lr_np = np.array(lr)
-    hr_np = np.array(hr)
-
-    if config.noise_type is not None:
-        if config.noise_type["type"] == "SaltAndPepper":
-            lr_np = _add_salt_pepper_noise(rng, lr_np, s=config.noise_type["s"],
-                                           p=config.noise_type["p"])
-        elif config.noise_type["type"] == "Gaussian":
-            lr_np = _add_gaussian_noise(rng, lr_np,
-                                        std=config.noise_type["std"])
-
-    return (lr_np.astype(np.float32) / 255.0,
-            hr_np.astype(np.float32) / 255.0, filename)
+    return np.array(lr), np.array(hr)
 
 
 class DIV2KDataset:

@@ -30,12 +30,20 @@ and utils/DIP.py). Semantics kept:
 The JAX package runs the loop as one jitted scan; here it is a Python loop
 of PyTorch calls and kernel launches. The Adam path syncs nowhere inside
 it; L-BFGS 'zoom' reads each trial's value and slope back.
+
+The lane batch (``dip_superresolve_batch[_bucketed]``, tpusr's vmap) runs
+N images' independent nets as one batched computation: the lanes'
+parameters are stacked along a leading axis and ``torch.func.vmap`` runs
+``functional_call`` of one template net over them (per-lane convs become
+grouped convs), so one Adam over the stacked leaves is N per-lane Adams.
+As in tpusr, it forces ``conv_fusion='off'``: no kernel runs there.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import functools
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -200,6 +208,35 @@ def flat_objective(net, downsampler, leaves, z, lr_image, kernel=None,
     return _flat([t.detach() for t in leaves]), value_and_grad
 
 
+def _check_input(config: DIPConfig) -> None:
+    if config.input_method not in ("noise", "meshgrid"):
+        raise ValueError(f"unknown input method {config.input_method!r}")
+    if config.input_method == "meshgrid" and config.input_depth != 2:
+        raise ValueError("meshgrid input requires input_depth=2")
+
+
+def _chunks(config: DIPConfig) -> tuple[int, int, int]:
+    """(chunks, iterations per chunk, remainder): one metrics head per
+    log_freq iterations (one head when num_iter < log_freq)."""
+    if config.num_iter >= config.log_freq:
+        n_chunks, chunk_len = config.num_iter // config.log_freq, config.log_freq
+    else:
+        n_chunks, chunk_len = 1, config.num_iter
+    return n_chunks, chunk_len, config.num_iter - n_chunks * chunk_len
+
+
+def _head(out, hr, valid_hw, lpips_fn: Callable | None) -> list:
+    """One chunk head's [PSNR, SSIM, LPIPS] of an NHWC estimate (masked
+    to valid_hw when given; LPIPS NaN without lpips_fn)."""
+    if valid_hw is None:
+        m = [psnr_fn(out, hr), ssim_fn(out, hr, data_range=1.0)]
+    else:
+        m = [psnr_masked(out, hr, valid_hw), ssim_masked(out, hr, valid_hw)]
+    m.append(lpips_fn(out, hr) if lpips_fn is not None
+             else torch.full((), float("nan"), device=out.device))
+    return m
+
+
 def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
               lpips_fn: Callable | None, valid_hw=None):
     if config.optimizer not in ("adam", "lbfgs"):
@@ -209,10 +246,7 @@ def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
         raise ValueError(
             f"unknown lbfgs_line_search {config.lbfgs_line_search!r}")
     parts = _opt_parts(config)
-    if config.input_method not in ("noise", "meshgrid"):
-        raise ValueError(f"unknown input method {config.input_method!r}")
-    if config.input_method == "meshgrid" and config.input_depth != 2:
-        raise ValueError("meshgrid input requires input_depth=2")
+    _check_input(config)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     lr = _nchw(_image(lr_image, dev))
@@ -252,21 +286,10 @@ def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
 
     def metrics_of():
         with torch.no_grad():
-            out = net(z, update_stats=False).permute(0, 2, 3, 1)
-            if valid_hw is None:
-                m = [psnr_fn(out, hr), ssim_fn(out, hr, data_range=1.0)]
-            else:
-                m = [psnr_masked(out, hr, valid_hw),
-                     ssim_masked(out, hr, valid_hw)]
-            m.append(lpips_fn(out, hr) if lpips_fn is not None
-                     else torch.full((), float("nan"), device=dev))
-        return m
+            return _head(net(z, update_stats=False).permute(0, 2, 3, 1), hr,
+                         valid_hw, lpips_fn)
 
-    if config.num_iter >= config.log_freq:
-        n_chunks, chunk_len = config.num_iter // config.log_freq, config.log_freq
-    else:
-        n_chunks, chunk_len = 1, config.num_iter
-    remainder = config.num_iter - n_chunks * chunk_len
+    n_chunks, chunk_len, remainder = _chunks(config)
     std = config.reg_noise_std
     noise = None
 
@@ -399,6 +422,205 @@ def dip_superresolve_scan_bucketed(lr_images, hr_images, valid_hws,
         curves.append(c)
     return torch.stack(out), {k: np.stack([c[k] for c in curves])
                               for k in curves[0]}
+
+
+def stack_lanes(nets, device) -> dict[str, torch.Tensor]:
+    """The lanes' parameters, each stacked along a new leading axis, as
+    trainable leaves on ``device`` (one template net's names)."""
+    named = [dict(net.named_parameters()) for net in nets]
+    return {k: torch.stack([p[k].detach().to(device) for p in named])
+            .requires_grad_() for k in named[0]}
+
+
+def _lane_out(template, p, z_lane):
+    from torch.func import functional_call
+
+    # train-mode statistics; the running-statistics update is skipped
+    # (vmap refuses its in-place write, and DIP never reads it)
+    return functional_call(template, p, (z_lane,), {"update_stats": False})
+
+
+def _lane_loss(template, downsampler, p, z_lane, lr_lane, k_lane, m_lane):
+    """``dip_loss`` of one lane, for vmap."""
+    out = _lane_out(template, p, z_lane)
+    out_lr = (downsampler(out) if k_lane is None
+              else downsampler.conv2d_with(out, k_lane))
+    err = (out_lr - lr_lane).square()
+    if m_lane is None:
+        return err.mean()
+    count = torch.clamp(m_lane.sum(), min=1.0) * err.shape[1]
+    return (err * m_lane).sum() / count
+
+
+def lane_iteration(template, downsampler, params, optimizer, z, noise,
+                   lr_images, reg_noise_std: float, kernel=None,
+                   lr_mask=None) -> torch.Tensor:
+    """One DIP step of every lane at once (``dip_iteration`` per lane).
+
+    params: stacked leaves (``stack_lanes``) that ``template`` is called
+    with; z, noise (N, 1, C, H, W) (noise None skips the perturbation);
+    lr_images (N, 1, 3, h, w); kernel (N, k, k) and lr_mask
+    (N, 1, 1, h, w) when trained or bucketed. ``optimizer`` holds the
+    stacked leaves (and z, kernel when trained): Adam is elementwise with
+    one step count, so one Adam over them is N per-lane Adams. Returns the
+    lanes' losses (N,), detached; no host sync.
+    """
+    from torch.func import vmap
+
+    loss_fn = vmap(functools.partial(_lane_loss, template, downsampler),
+                   in_dims=(0, 0, 0, None if kernel is None else 0,
+                            None if lr_mask is None else 0))
+    z_iter = z if noise is None else z + noise * reg_noise_std
+    losses = loss_fn(params, z_iter, lr_images, kernel, lr_mask)
+    optimizer.zero_grad(set_to_none=True)
+    # lanes share no leaf, so the sum's gradient is each lane's own
+    losses.sum().backward()
+    optimizer.step()
+    return losses.detach()
+
+
+def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
+               lpips_fn: Callable | None, valid_hws=None):
+    """N lanes of ``_dip_core``'s Adam path as one batched computation.
+
+    Lane i is the single-image run with ``generators[i]``: its net is
+    initialised from it, and the device generator it seeds draws the lane's
+    z and reg noise, drawn per lane outside vmap and stacked (vmap's own
+    randomness would not reproduce a lane's stream). The forward is
+    train-mode with the running-statistics update skipped: vmap refuses
+    BatchNorm's in-place update, and no DIP forward ever reads those
+    statistics (every one normalises with its batch's).
+    """
+    from torch.func import vmap
+
+    if config.optimizer != "adam":
+        raise ValueError(
+            f"the lane batch runs Adam; optimizer {config.optimizer!r} runs "
+            f"one image at a time (dip_superresolve_scan_bucketed)")
+    parts = _opt_parts(config)
+    _check_input(config)
+    config = dataclasses.replace(config, conv_fusion="off")
+    n = len(generators)
+    if not (len(lr_images) == len(hr_images) == n):
+        raise ValueError("lr_images, hr_images and generators differ in "
+                         "length")
+    lr = torch.stack([_nchw(_image(a, dev)) for a in lr_images])
+    hr = torch.stack([_image(a, dev) for a in hr_images])  # (N, 1, H, W, 3)
+    _, _, h, w, _ = hr.shape
+
+    nets, dev_gens = [], []
+    for gen in generators:
+        net, downsampler = build(config, gen)
+        nets.append(net)
+        dg = torch.Generator(device=dev)
+        dg.manual_seed(int(torch.randint(0, 2 ** 62, (1,), generator=gen)))
+        dev_gens.append(dg)
+    template = nets[0].to(dev)
+    downsampler.to(dev)
+
+    def draw(fn):  # one NHWC draw per lane, stacked as (N, 1, C, H, W)
+        return torch.stack([_nchw(fn((1, h, w, config.input_depth),
+                                     generator=g, device=dev))
+                            for g in dev_gens])
+
+    if config.input_method == "noise":
+        z = draw(torch.rand) * config.input_noise_scale
+    else:
+        z = _nchw(meshgrid_input(h, w).to(dev))[None].expand(
+            n, -1, -1, -1, -1).contiguous()
+    params = stack_lanes(nets, dev)
+    leaves = list(params.values())
+    if "input" in parts:
+        z = z.detach().clone().requires_grad_()
+        leaves.append(z)
+    kernel = None
+    if "down" in parts:
+        kernel = downsampler.kernel.detach()[None].repeat(n, 1, 1)
+        kernel.requires_grad_()
+        leaves.append(kernel)
+
+    lr_mask = None
+    if valid_hws is not None:
+        lr_mask = torch.stack([
+            _valid_mask(lr.shape[-2:], (int(v[0]) // config.factor,
+                                        int(v[1]) // config.factor),
+                        dev)[..., 0][None, None] for v in valid_hws])
+    batched_out = vmap(functools.partial(_lane_out, template))
+
+    def forward_nhwc(z_in):  # (N, 1, H, W, 3)
+        return batched_out(params, z_in).permute(0, 1, 3, 4, 2)
+
+    def metrics_of():  # (N, 3)
+        with torch.no_grad():
+            out = forward_nhwc(z)
+            return torch.stack([torch.stack(_head(
+                out[i], hr[i], None if valid_hws is None else
+                (int(valid_hws[i][0]), int(valid_hws[i][1])), lpips_fn))
+                for i in range(n)])
+
+    n_chunks, chunk_len, remainder = _chunks(config)
+    std = config.reg_noise_std
+    optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
+    noise = None
+
+    def run(n_iter):
+        nonlocal noise
+        losses = torch.full((n,), float("nan"), device=dev)
+        for _ in range(n_iter):
+            noise = draw(torch.randn) if std > 0 else None
+            losses = lane_iteration(template, downsampler, params,
+                                    optimizer, z, noise, lr, std, kernel,
+                                    lr_mask)
+        return losses
+
+    heads, losses = [], []
+    for _ in range(n_chunks):
+        heads.append(metrics_of())
+        losses.append(run(chunk_len))
+    run(remainder)
+
+    z_final = z
+    if not config.resolve_clean and noise is not None:
+        z_final = z + noise * std
+    with torch.no_grad():
+        resolved = forward_nhwc(z_final).contiguous()
+    m = torch.stack(heads, 1).float().cpu().numpy()  # (N, chunks, 3)
+    evals = [chunk_len] * n_chunks
+    evals[-1] += remainder
+    curves = {"psnr": m[..., 0], "ssim": m[..., 1], "lpips": m[..., 2],
+              "loss": torch.stack(losses, 1).float().cpu().numpy(),
+              "evals": np.tile(np.asarray(evals, np.int64), (n, 1))}
+    return resolved, curves
+
+
+def dip_superresolve_batch(lr_images, hr_images,
+                           generators: Sequence[torch.Generator],
+                           config: DIPConfig,
+                           device: str | torch.device = "cuda",
+                           lpips_fn: Callable | None = None):
+    """Multi-image DIP as one batched computation (tpusr's vmap).
+
+    lr_images (N, 1, h, w, 3), hr_images (N, 1, H, W, 3), N generators:
+    each lane optimises a fresh net of its own, as ``dip_superresolve``
+    with that generator and conv_fusion 'off' would. Adam only (L-BFGS
+    lanes run one at a time, ``dip_superresolve_scan_bucketed``). Returns
+    (N, 1, H, W, 3) and curves with a leading N axis.
+    """
+    return _lane_core(lr_images, hr_images, config, list(generators),
+                      resolve_device(device), lpips_fn)
+
+
+def dip_superresolve_batch_bucketed(lr_images, hr_images, valid_hws,
+                                    generators: Sequence[torch.Generator],
+                                    config: DIPConfig,
+                                    device: str | torch.device = "cuda",
+                                    lpips_fn: Callable | None = None):
+    """The lane batch over images zero-padded to one bucket; valid_hws
+    (N, 2) the true HR sizes: each lane's loss and curves are masked to
+    its own valid region (``dip_superresolve_bucketed`` per lane)."""
+    return _lane_core(lr_images, hr_images, config, list(generators),
+                      resolve_device(device), lpips_fn,
+                      valid_hws=np.asarray(valid_hws))
 
 
 def pad_to_bucket(arr, bucket: int):

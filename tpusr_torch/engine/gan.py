@@ -257,9 +257,11 @@ def _g_forward(state: GANTrainState, lr_patches, config: GANTrainConfig):
 
 
 def _d_update(state: GANTrainState, fake, hr_patches,
-              config: GANTrainConfig):
+              config: GANTrainConfig, reduce_grads: Callable | None = None):
     """D's loss on (real, fake.detach()), its backward and its Adam step
-    (train_GAN.py:43-53)."""
+    (train_GAN.py:43-53). ``reduce_grads(params)``, when given, rewrites
+    the gradients between the backward and the step (the data-parallel
+    mean over ranks)."""
     D = state.D
     hr = hr_patches.permute(0, 3, 1, 2)
     fake_d = fake.detach().to(hr.dtype)
@@ -271,15 +273,18 @@ def _d_update(state: GANTrainState, fake, hr_patches,
     else:
         loss_D = L.discriminator_loss(D(hr, True), D(fake_d, True))
     loss_D.backward()
+    if reduce_grads is not None:
+        reduce_grads(list(D.parameters()))
     state.opt_D.step()
     return loss_D.detach()
 
 
 def _g_update(state: GANTrainState, fake, hr_patches,
-              config: GANTrainConfig, content_loss: Callable):
+              config: GANTrainConfig, content_loss: Callable,
+              reduce_grads: Callable | None = None):
     """G's loss through the just-updated D (train mode, its BN update
     discarded), the gradient of G's leaves only, and G's Adam step
-    (train_GAN.py:55-64)."""
+    (train_GAN.py:55-64); ``reduce_grads`` as in ``_d_update``."""
     adv_input = fake.detach() if config.legacy_detach else fake
     fake_logits = state.D(adv_input, True, update_stats=False)
     loss_G = L.perceptual_loss(content_loss, fake.permute(0, 2, 3, 1),
@@ -289,6 +294,8 @@ def _g_update(state: GANTrainState, fake, hr_patches,
     # none of loss_G's gradient lands on D
     for p, g in zip(params_G, torch.autograd.grad(loss_G, params_G)):
         p.grad = g
+    if reduce_grads is not None:
+        reduce_grads(params_G)
     state.opt_G.step()
     return loss_G.detach()
 

@@ -12,7 +12,12 @@ stack is a multiple of the batch size (``stack_dataset_for_device`` pads
 by wrapping). Metrics (PSNR, SSIM, LPIPS or NaN) come from a train-mode
 ``generator_forward`` on each step's patches in the chunk's first epoch,
 which callers align with the reference's ``epoch % log_freq == 0``.
-tpusr's ``mesh`` (data parallelism) belongs to ``parallel/``, not ported.
+Data parallelism (tpusr's ``mesh``) comes in as the step and the metrics
+forward that ``parallel/gan_dp.py`` builds for a mesh: every rank draws
+the crops of the whole global batch from the shared generator and hands
+them to that step, which trains on the rank's slice, so the ranks see the
+patches one device would; the metrics forward uses the global batch
+statistics too and scores the gathered global batch.
 """
 
 from __future__ import annotations
@@ -76,7 +81,9 @@ def gan_train_epochs(state: GANTrainState, lr_images_u8: torch.Tensor,
                      hr_images_u8: torch.Tensor, valid_lr: torch.Tensor,
                      generator: torch.Generator, config: GANTrainConfig,
                      content_loss: Callable = L.mse, n_epochs: int = 1,
-                     lpips_fn: Callable | None = None):
+                     lpips_fn: Callable | None = None,
+                     step_fn: Callable | None = None,
+                     forward_fn: Callable | None = None):
     """Run ``n_epochs`` epochs on the device.
 
     lr_images_u8 (N, lh, lw, 3) and hr_images_u8 (N, lh f, lw f, 3) uint8,
@@ -84,7 +91,18 @@ def gan_train_epochs(state: GANTrainState, lr_images_u8: torch.Tensor,
     ``generator``. Returns (state, logs): losses_D / losses_G (n_epochs,
     steps) tensors on the device, and psnr / ssim / lpips, the means over
     the first epoch's steps (lpips NaN without ``lpips_fn``).
+    ``step_fn(state, lr_p, hr_p)`` and ``forward_fn(state, lr_p)`` replace
+    ``gan_train_step`` and the metrics' train-mode forward; for data
+    parallelism they are ``parallel.gan_dp``'s ``make_dp_train_step`` step
+    and ``make_dp_forward``, each rank holds the same stacks, state and
+    generator seed, and the losses are the ranks' means.
     """
+    if step_fn is None:
+        def step_fn(st, lr_p, hr_p):
+            return gan_train_step(st, lr_p, hr_p, config, content_loss)
+    if forward_fn is None:
+        def forward_fn(st, lr_p):
+            return generator_forward(st.G, lr_p, config, train=True)
     n = lr_images_u8.shape[0]
     b = config.batch_size
     if n % b:
@@ -99,14 +117,12 @@ def gan_train_epochs(state: GANTrainState, lr_images_u8: torch.Tensor,
             lr_p, hr_p = _crop_pair(lr_images_u8[sl], hr_images_u8[sl],
                                     valid_lr[sl], generator, lr_patch, f,
                                     config.legacy_scale)
-            state, losses = gan_train_step(state, lr_p, hr_p, config,
-                                           content_loss)
+            state, losses = step_fn(state, lr_p, hr_p)
             losses_d.append(losses["loss_D"])
             losses_g.append(losses["loss_G"])
             if epoch == 0:
                 with torch.no_grad():
-                    out = generator_forward(state.G, lr_p, config,
-                                            train=True)
+                    out = forward_fn(state, lr_p)
                     metrics.append(torch.stack([
                         psnr_fn(out, hr_p), ssim_fn(out, hr_p, data_range=1.0),
                         lpips_fn(out, hr_p) if lpips_fn is not None

@@ -13,11 +13,15 @@ JAX package's one-pass formulas: var = max(E[x^2] - E[x]^2, 0) in f32, the
 biased variance normalizes, the unbiased one goes into the running stats.
 Two hooks carry the fused dataflow: ``conv_stats`` (the producing conv
 already reduced sum/sum^2 of its bias-free output) and ``return_affine``
-(the consuming conv applies the normalize in its prologue).
+(the consuming conv applies the normalize in its prologue). Under
+``global_batch_stats(all_sum, world)`` a train-mode BatchNorm's
+statistics span the batches of every rank of a data-parallel group, as
+tpusr's jitted DP step computes them over the global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Sequence
 
@@ -51,6 +55,41 @@ def _hwio(w: torch.Tensor) -> torch.Tensor:
 
 def _per_channel(v: torch.Tensor, dtype) -> torch.Tensor:
     return v.to(dtype).view(1, -1, 1, 1)
+
+
+_STAT_REDUCE = None  # (all_sum, world) of the active global_batch_stats
+
+
+@contextlib.contextmanager
+def global_batch_stats(all_sum: Callable, world: int):
+    """Within the block, BatchNorm's train-mode statistics are those of the
+    global batch over ``world`` ranks. ``all_sum(t)`` returns the sum of
+    ``t`` over the ranks, differentiably (its backward sums the cotangents
+    over the ranks); the caller that owns the process group supplies it
+    (``parallel/gan_dp.py``). Each layer sums its per-channel raw moments,
+    each rank's E[x] and E[x^2] weighted by its share 1/W of the global
+    count (Σ_r S_r / N, the sums behind them). So every rank normalises and
+    updates its running statistics with the same global mean and variance.
+    That is 2C floats per layer (per stat group); from the fused path's
+    conv_stats, no extra pass over the activations. Every rank's batch
+    must have the same shape (the DP step splits the global batch evenly).
+    At W = 1 the statistics are the single-process ones bit for bit;
+    outside the block, BatchNorm is the single-process layer itself."""
+    global _STAT_REDUCE
+    prev, _STAT_REDUCE = _STAT_REDUCE, (all_sum, world)
+    try:
+        yield
+    finally:
+        _STAT_REDUCE = prev
+
+
+def _global_moments(m1, m2, n: int):
+    """(E[x], E[x^2], count) over the ranks from this rank's (..., C)
+    moments over its n elements per channel."""
+    all_sum, world = _STAT_REDUCE
+    c = m1.shape[-1]
+    buf = all_sum(torch.cat([m1, m2], -1) * (1.0 / world))
+    return buf[..., :c], buf[..., c:], n * world
 
 
 def conv_apply(x, weight, stride: int, pad_mode: str, bias=None):
@@ -171,8 +210,10 @@ class BatchNorm(nn.Module):
                 pending = conv_stats[3]
         elif conv_stats is not None:
             s, ss, n, cb = conv_stats
-            m_raw = s / n
-            var = torch.clamp(ss / n - m_raw.square(), min=0.0)
+            m_raw, m2 = s / n, ss / n
+            if _STAT_REDUCE is not None:
+                m_raw, m2, n = _global_moments(m_raw, m2, n)
+            var = torch.clamp(m2 - m_raw.square(), min=0.0)
             mean = m_raw + cb
             pending = cb
             if update_stats:
@@ -196,7 +237,15 @@ class BatchNorm(nn.Module):
             raise ValueError(f"batch {x.shape[0]} not divisible into {g} "
                              f"stat groups")
         xg = x.reshape(g, x.shape[0] // g, *x.shape[1:])
-        moments = [_batch_moments(part) for part in xg]
+        if _STAT_REDUCE is None:
+            moments = [_batch_moments(part) for part in xg]
+        else:  # one all-reduce for the g groups
+            local = [_local_moments(part) for part in xg]
+            m1, m2, n = _global_moments(torch.stack([m[0] for m in local]),
+                                        torch.stack([m[1] for m in local]),
+                                        local[0][2])
+            moments = [(m1[i], torch.clamp(m2[i] - m1[i].square(), min=0.0),
+                        n) for i in range(g)]
         if update_stats:
             for mean, var, n in moments:  # group order = call order
                 self._update(mean, var, n)
@@ -208,16 +257,23 @@ class BatchNorm(nn.Module):
         return (xg * es + eb).reshape(x.shape)
 
 
-def _batch_moments(x):
-    """Per-channel mean and biased variance over (N, H, W), one pass
-    (E[x^2] - E[x]^2, clamped: bf16 squares can dip below zero), in f32;
-    an f64 net (the exact yardstick of chip_smoke.py) keeps f64."""
+def _local_moments(x):
+    """Per-channel E[x] and E[x^2] over (N, H, W) in f32 (an f64 net, the
+    exact yardstick of chip_smoke.py, keeps f64) and the count."""
     dims = (0, 2, 3)
     acc = torch.promote_types(x.dtype, torch.float32)
-    mean = x.mean(dims, dtype=acc)
-    mean2 = x.square().mean(dims, dtype=acc)
-    var = torch.clamp(mean2 - mean.square(), min=0.0)
-    return mean, var, x.numel() // x.shape[1]
+    return (x.mean(dims, dtype=acc), x.square().mean(dims, dtype=acc),
+            x.numel() // x.shape[1])
+
+
+def _batch_moments(x):
+    """Per-channel mean and biased variance over (N, H, W), one pass
+    (E[x^2] - E[x]^2, clamped: bf16 squares can dip below zero), and the
+    count; under ``global_batch_stats`` over the group's global batch."""
+    mean, mean2, n = _local_moments(x)
+    if _STAT_REDUCE is not None:
+        mean, mean2, n = _global_moments(mean, mean2, n)
+    return mean, torch.clamp(mean2 - mean.square(), min=0.0), n
 
 
 class SplitBatchNorm(nn.Module):

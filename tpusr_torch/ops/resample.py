@@ -151,3 +151,13 @@ class Downsampler(nn.Module):
             x = F.pad(x, (self.pad,) * 4, mode="replicate")
         w = kernel2d.to(x.dtype).view(1, 1, k, k).expand(c, 1, k, k)
         return F.conv2d(x, w, stride=self.factor, groups=c)
+
+
+def downsample_lanczos(x: torch.Tensor, factor: int, phase: float = 0.5,
+                       preserve_size: bool = True) -> torch.Tensor:
+    """The DIP loss operator, a lanczos2 downsample (DIP.py:29), of an
+    NCHW tensor (the JAX package's takes NHWC)."""
+    ds = Downsampler(n_planes=x.shape[1], factor=factor,
+                     kernel_type="lanczos2", phase=phase,
+                     preserve_size=preserve_size).to(x.device)
+    return ds(x)
