@@ -131,8 +131,18 @@ Phases (any failure raises, so the exit code is non-zero):
      far), and the lane batch's gradient against each lane alone; (d) the
      DIP iteration per image: the lane batch at N = 2 and 4 against the
      loop of ``dip_superresolve_scan_bucketed`` (conv_fusion auto and
-     off). Phase 2 holds A and B at the new paths' shapes: a slab's
-     window (352 x 128) and a DP rank's batch of 4.
+     off); (e) the L-BFGS lanes: ``dip_superresolve_batch`` with
+     optimizer 'lbfgs', 'fixed' and 'zoom', 2 lanes of the full-width net
+     on 512^2 canvases, f32, TF32 off, 100 warm-up steps + 10 iterations:
+     no launch of A-E (tpusr's vmap path is unfused), every lane's loss
+     finite and falling; from the engine's warm-up state, one iteration
+     batched against each lane alone (the lane objective of that lane
+     only): the same trial counts per lane, the update within 1e-3 (rel.
+     L2), the single run's own net printed beside it; ms per
+     iteration per image against the loop (conv_fusion auto, ABBA), with
+     the batched calls per iteration beside each lane's evaluations.
+     Phase 2 holds A and B at the new paths' shapes: a slab's window
+     (352 x 128) and a DP rank's batch of 4.
 The line before the last holds the kernels' JSON record (each kernel with
 its design and its launches per main path), the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -2608,17 +2618,252 @@ def time_lanes(iters=10, warmup=3):
     return rows
 
 
+# phase 10e: the L-BFGS lanes. Lanes, the lanes' iterations after the
+# warm-up, and the bound on one batched iteration against each lane alone:
+# phase 10c's lane-gradient bound (relative L2 of the parameters' update)
+LBFGS_LANES = 2
+LBFGS_LANE_ITERS = 10
+LBFGS_STEP_REL = 1e-3
+
+
+def lbfgs_lane_inputs(n=LBFGS_LANES):
+    """n canvases (dip_canvas(0..n-1)) stacked as the lane batch takes
+    them: lr (n, 1, 64, 64, 3), hr (n, 1, 512, 512, 3)."""
+    pairs = [dip_canvas(i) for i in range(n)]
+    return (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]))
+
+
+def run_lbfgs_lane_batch(search):
+    """Phase 10e (ii, iii): dip_superresolve_batch with L-BFGS at full
+    width on 2 canvases, f32, TF32 off: WARMUP_ITERS Adam steps, then
+    LBFGS_LANE_ITERS L-BFGS iterations (log_freq 1), the launch counts read
+    around it (tpusr's vmap path is unfused: none of A-E may launch); every
+    lane's loss finite and falling, the images finite. Returns the counts,
+    the curves and a copy of the warm-up state that the engine handed
+    lane_objective (template, downsampler, params, z, lr images)."""
+    from tpusr_torch.engine import dip
+
+    cfg = dip.DIPConfig(optimizer="lbfgs", lbfgs_line_search=search,
+                        num_iter=LBFGS_LANE_ITERS, log_freq=1)
+    lr, hr = lbfgs_lane_inputs()
+    gens = [torch.Generator().manual_seed(i) for i in range(len(lr))]
+    saved, warm = dip.lane_objective, {}
+
+    def spy(template, down, params, z, lrs, kernel=None, lr_mask=None):
+        warm.update(template=template, down=down, z=z.detach().clone(),
+                    lrs=lrs.clone(), params={k: v.detach().clone()
+                                             for k, v in params.items()})
+        return saved(template, down, params, z, lrs, kernel, lr_mask)
+
+    dip.lane_objective = spy
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res, curves = dip.dip_superresolve_batch(lr, hr, gens, cfg, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        dip.lane_objective = saved
+    loss = curves["loss"]
+    print(f"phase 10e: lane batch, L-BFGS {search}, {len(lr)} lanes x "
+          f"({dip.WARMUP_ITERS} warm-up + {LBFGS_LANE_ITERS}) iterations in "
+          f"{wall:.3f} s; loss curves {loss.tolist()}; PSNR "
+          f"{curves['psnr'][:, -1].tolist()}; evaluations per lane "
+          f"{curves['evals'].sum(1).tolist()}; launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"L-BFGS lanes launched a kernel: {counts}")
+    if not (np.isfinite(loss).all() and (loss[:, -1] < loss[:, 0]).all()
+            and torch.isfinite(res).all() and res.shape == hr.shape):
+        raise AssertionError(f"L-BFGS lanes ({search}): loss not finite or "
+                             f"not falling: {loss.tolist()}")
+    return counts, curves, warm
+
+
+def lbfgs_steppers(search, n, size, memory=10):
+    """(step(x, value_and_grad) -> (x, trial counts of this iteration,
+    the update), the optimizer) of n lanes; L-BFGS 'fixed' at the default
+    lr 0.01. The fixed update is the stepper's own: its first step,
+    lr g / ||g||_1, is about 5e-9 an element at full width, the rounding
+    of the parameters themselves (an ulp of 0.05 is 3.7e-9), so x' - x
+    would measure the rounding of x + update; the zoom update (g / ||g||_2
+    times the stepsize) is x' - x."""
+    from tpusr_torch.engine.lbfgs import (ZoomLBFGSLanes,
+                                          lbfgs_fixed_init_lanes,
+                                          lbfgs_fixed_step_lanes)
+
+    if search == "zoom":
+        opt = ZoomLBFGSLanes(n, size, memory, "cuda")
+
+        def step(x, vg):
+            x1, _ = opt.step(x, vg)
+            return x1, [s[-1] for s in opt.linesearch_steps], x1 - x
+        return step, opt
+    box = {"state": lbfgs_fixed_init_lanes(n, size, memory, "cuda")}
+
+    def step(x, vg):
+        _, g = vg(x, list(range(n)))
+        upd, box["state"] = lbfgs_fixed_step_lanes(g, box["state"], 0.01)
+        return x + upd, [1] * n, upd
+    return step, box
+
+
+def lane_alone(warm, i, fusion="off"):
+    """Lane i of the warm-up state as a single run's net on the card:
+    (x, flat_objective's value_and_grad) with the one-lane signature."""
+    from tpusr_torch.engine import dip
+    from tpusr_torch.engine.lbfgs import one_lane
+
+    cfg = dip.DIPConfig(conv_fusion=fusion)
+    net = dip.build(cfg, torch.Generator().manual_seed(i))[0]
+    net.to("cuda", memory_format=torch.channels_last)
+    with torch.no_grad():
+        for k, p in net.named_parameters():
+            p.copy_(warm["params"][k][i])
+    x, vg = dip.flat_objective(net, warm["down"], list(net.parameters()),
+                               warm["z"][i], warm["lrs"][i])
+    return x[None], one_lane(vg)
+
+
+def check_lbfgs_lane_step(search, warm):
+    """Phase 10e (i): from the warm-up state, one L-BFGS iteration of the
+    lanes batched against each lane alone (the lane objective over that
+    lane only, phase 10c's sense): the same trial counts per lane, and the
+    update (new minus old parameters) within LBFGS_STEP_REL in relative L2
+    (so the new parameters too). Printed beside it, not held: the same
+    iteration through the single run's own net (flat_objective on a
+    channels_last net, other conv algorithms), whose gradient can part by
+    more at a trained state (a tiny net on a CPU: 1.4e-3)."""
+    from tpusr_torch.engine import dip
+
+    n = warm["z"].shape[0]
+    x, vg = dip.lane_objective(warm["template"], warm["down"],
+                               dict(warm["params"]), warm["z"], warm["lrs"])
+    step, _ = lbfgs_steppers(search, n, x.shape[1])
+    x1, counts, upd = step(x, vg)
+    row = {"trials": counts, "alone": [], "rel": [], "params_rel": [],
+           "single": [], "single_rel": []}
+
+    def apart(d, db):
+        d, db = d.double(), db.double()
+        return float((d - db).norm() / db.norm())
+
+    for i in range(n):
+        step_i, _ = lbfgs_steppers(search, 1, x.shape[1])
+        xi1, ci, upd_i = step_i(x[i:i + 1],
+                                lambda xs, lanes, i=i: vg(xs, [i]))
+        row["alone"] += ci
+        row["rel"].append(apart(upd[i], upd_i[0]))
+        row["params_rel"].append(apart(x1[i], xi1[0]))
+        xs, one = lane_alone(warm, i)
+        if not torch.equal(xs[0], x[i]):
+            raise AssertionError(f"lane {i}: the flat vectors differ")
+        step_s, _ = lbfgs_steppers(search, 1, x.shape[1])
+        _, cs, upd_s = step_s(xs, one)
+        row["single"] += cs
+        row["single_rel"].append(apart(upd[i], upd_s[0]))
+    print(f"phase 10e: one L-BFGS {search} iteration from the warm-up state, "
+          f"lanes batched against each lane alone: trial counts "
+          f"{counts} / {row['alone']}, update apart (rel. L2) {row['rel']}, "
+          f"new parameters {row['params_rel']}; against the single run's "
+          f"net: trial counts {row['single']}, update {row['single_rel']}")
+    if counts != row["alone"] or not max(row["rel"]) < LBFGS_STEP_REL:
+        raise AssertionError(f"L-BFGS {search} lanes differ from each lane "
+                             f"alone: {row}")
+    return row
+
+
+def time_lbfgs_lanes(search, warm, iters=5, warmup=1):
+    """Phase 10e (iv): ms per L-BFGS iteration per image from the warm-up
+    state: the lanes batched against the loop of
+    dip_superresolve_scan_bucketed (one image's iteration after the other,
+    conv_fusion 'auto' as the default config runs it: kernels A and B);
+    CUDA events over ``iters`` after ``warmup``, in ABBA order. Beside
+    them, the batched value-and-gradient calls per iteration and each
+    lane's own evaluations per iteration."""
+    from tpusr_torch.engine import dip
+
+    n = warm["z"].shape[0]
+    x, vg = dip.lane_objective(warm["template"], warm["down"],
+                               dict(warm["params"]), warm["z"], warm["lrs"])
+    step, opt = lbfgs_steppers(search, n, x.shape[1])
+    box = {"x": x}
+
+    def lanes():
+        box["x"] = step(box["x"], vg)[0]
+
+    singles = []
+    for i in range(n):
+        xi, one = lane_alone(warm, i, "auto")
+        singles.append([xi, one, *lbfgs_steppers(search, 1, xi.shape[1])])
+
+    def loop():
+        for s in singles:
+            s[0] = s[2](s[0], s[1])[0]
+
+    times = {"lanes": [], "loop": []}
+    for k in ("lanes", "loop", "loop", "lanes"):
+        times[k].append(time_ms(lanes if k == "lanes" else loop, iters,
+                                warmup) / n)
+    done = 2 * (iters + warmup)
+    row = {k: sum(v) / 2 for k, v in times.items()}
+    if search == "zoom":
+        row["calls_per_iteration"] = opt.calls / done
+        row["lane_evals_per_iteration"] = [e / done for e in opt.evals]
+        row["loop_evals_per_iteration"] = [s[3].evals[0] / done
+                                           for s in singles]
+    else:
+        row["calls_per_iteration"] = 1.0
+        row["lane_evals_per_iteration"] = [1.0] * n
+    print(f"phase 10e: L-BFGS {search} ms per iteration per image (CUDA "
+          f"events, {iters} after {warmup}, ABBA): lanes {row['lanes']:.3f} "
+          f"({times['lanes']}), loop (auto) {row['loop']:.3f} "
+          f"({times['loop']}), {row['lanes'] / row['loop']:.3f}x; batched "
+          f"calls per iteration {row['calls_per_iteration']:.3f}, each "
+          f"lane's evaluations per iteration "
+          f"{row['lane_evals_per_iteration']}"
+          + (f", the loop's {row['loop_evals_per_iteration']}"
+             if search == "zoom" else ""))
+    return row
+
+
+def run_lbfgs_lanes():
+    """Phase 10e: the lane batch with L-BFGS 'fixed' and 'zoom' at full
+    width, f32, TF32 off (cuDNN's and cuBLAS's)."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths, rows = {}, {}
+    try:
+        for search in ("fixed", "zoom"):
+            counts, _, warm = run_lbfgs_lane_batch(search)
+            paths[f"dip lanes lbfgs {search}"] = counts
+            rows[search] = dict(step=check_lbfgs_lane_step(search, warm),
+                                **time_lbfgs_lanes(search, warm))
+            del warm
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    return paths, rows
+
+
 def run_multi_device():
     """Phase 10: the native loader, NCCL at world size 1, two processes on
-    the card, the lane-batch times."""
+    the card, the lane-batch times, the L-BFGS lanes."""
     native_status, _ = check_native_loader()
     dp1, dp1_rows = check_dp_world1()
     shard, dp2, shard_times = run_shared_card()
     lanes = time_lanes()
+    t0 = time.perf_counter()
+    lbfgs_paths, lbfgs_rows = run_lbfgs_lanes()
+    print(f"phase 10e: L-BFGS lanes in {time.perf_counter() - t0:.1f} s")
     paths = {"srgan eval sharded": shard,
-             "srgan train dp": {k: dp1[k] + dp2[k] for k in dp1}}
+             "srgan train dp": {k: dp1[k] + dp2[k] for k in dp1},
+             **lbfgs_paths}
     return paths, dict(native=native_status, dp_w1=dp1_rows,
-                       shard=shard_times, lanes=lanes)
+                       shard=shard_times, lanes=lanes, lbfgs=lbfgs_rows)
 
 
 def main() -> int:

@@ -98,12 +98,20 @@ def test_bucketed_lanes_mask_each_lane():
                                rtol=0, atol=1e-6)
 
 
-def test_lane_batch_runs_adam_only():
+@pytest.mark.parametrize("field,value,match", [
+    ("optimizer", "sgd", "unknown optimizer 'sgd'"),
+    ("lbfgs_line_search", "backtracking",
+     "unknown lbfgs_line_search 'backtracking'")])
+def test_lane_batch_raises_for_unknown_optimizer_and_search(field, value,
+                                                            match):
+    """The lane batch refuses what the single run refuses, with its error
+    (tpusr's _dip_core raises the same)."""
     lr, hr = _inputs()
-    with pytest.raises(ValueError, match="lane batch runs Adam"):
-        dip.dip_superresolve_batch(
-            lr, hr, _gens(), dataclasses.replace(TINY, optimizer="lbfgs"),
-            device="cpu")
+    cfg = dataclasses.replace(TINY, **{"optimizer": "lbfgs", field: value})
+    with pytest.raises(ValueError, match=match):
+        dip.dip_superresolve_batch(lr, hr, _gens(), cfg, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        dip.dip_superresolve(lr[0], hr[0], cfg, device="cpu")
 
 
 def test_one_lane_iteration_matches_jax_vmap():

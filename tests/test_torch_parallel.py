@@ -25,8 +25,9 @@ Tolerances:
     within 1e-5 (1e-6 absolute) of one BatchNorm over the whole batch;
   * the DP epochs: 2e-3, as tests/test_gan_epochs_dp.py; two EXACT
     steps in f32, the first moments within ``F32_GRAD_TOL``;
-  * the sharded DIP: tpusr's criteria (tests/test_parallel.py:183-190),
-    with the PSNR curves tightened from 0.5 to 1e-3 dB.
+  * the sharded DIP, with Adam and with L-BFGS 'fixed': tpusr's criteria
+    (tests/test_parallel.py:183-190), with the PSNR curves tightened from
+    0.5 to 1e-3 dB.
 """
 
 import os
@@ -70,6 +71,12 @@ BF16_MOMENT_TOL = 2.0 ** -8  # D's moments stored in bf16
 TPUSR_MOMENT_TOL = {"G": 1e-3, "D": 1e-2}
 TINY_DIP = dict(factor=2, num_iter=8, log_freq=4, input_depth=4,
                 skip_n33d=8, skip_n33u=8, skip_n11=2, num_scales=2)
+# the sharded L-BFGS lanes: 'fixed' after a 4-step Adam warm-up (the batch
+# and the ranks alike; tests/test_torch_dip_lbfgs_lanes.py says why the
+# 100 steps are cut on the CPU), 4 iterations at step 0.5
+TINY_DIP_LBFGS = dict(TINY_DIP, num_iter=4, log_freq=2, optimizer="lbfgs",
+                      lbfgs_line_search="fixed", learning_rate=0.5)
+LBFGS_WARMUP = 4
 TINY_CLI = ["--residual_blocks", "2", "--hr_patch_size", "64",
             "--pre_train_epochs", "1", "--fine_tune_epochs", "1",
             "--train_log_freq", "1", "--device", "cpu"]
@@ -187,8 +194,9 @@ def _battery4(rank, work):
 def _battery2(rank, work, tree, tpusr_work):
     """2 ranks: DP steps (tpusr's default bf16 D state; f32 from the state
     tpusr made), DP epochs, the global BatchNorm statistics, the sharded
-    DIP, and the train CLI."""
+    DIP (Adam and L-BFGS 'fixed'), and the train CLI."""
     from tpusr_torch.cli import train_gan
+    from tpusr_torch.engine import dip
     from tpusr_torch.engine.dip import DIPConfig
     from tpusr_torch.engine.gan_epochs import gan_train_epochs
     from tpusr_torch.models.layers import BatchNorm
@@ -238,6 +246,14 @@ def _battery2(rank, work, tree, tpusr_work):
         lr_dip, hr_dip, [torch.Generator().manual_seed(i) for i in range(4)],
         DIPConfig(**TINY_DIP), mesh, device="cpu")
     out["dip"] = (res, curves)
+    warmup, dip.WARMUP_ITERS = dip.WARMUP_ITERS, LBFGS_WARMUP
+    try:
+        out["dip_lbfgs"] = dip_superresolve_sharded(
+            lr_dip, hr_dip,
+            [torch.Generator().manual_seed(i) for i in range(4)],
+            DIPConfig(**TINY_DIP_LBFGS), mesh, device="cpu")
+    finally:
+        dip.WARMUP_ITERS = warmup
 
     cli_out = os.path.join(work, "cli")
     os.makedirs(cli_out, exist_ok=True)
@@ -572,22 +588,42 @@ def test_global_batch_norm_statistics(ranks2, case):
                                        atol=1e-6, msg=k)
 
 
+def _close_to_the_lane_batch(got, ref):
+    """tpusr's criteria for a sharded run against the batch, PSNR
+    tightened to 1e-3 dB."""
+    res, curves = got
+    assert res.shape == (4, 1, 16, 16, 3)
+    diff = (res - ref[0]).abs().numpy()
+    assert np.median(diff) < 1e-5
+    assert (diff > 1e-3).mean() < 0.25
+    np.testing.assert_allclose(curves["psnr"], ref[1]["psnr"], rtol=0,
+                               atol=1e-3)
+    assert curves["loss"].shape == ref[1]["loss"].shape == (4, 2)
+
+
 def test_sharded_dip_matches_the_lane_batch(ranks2):
     from tpusr_torch.engine.dip import DIPConfig, dip_superresolve_batch
 
     lr_dip, hr_dip = _dip_inputs()
-    ref, curves = dip_superresolve_batch(
+    ref = dip_superresolve_batch(
         lr_dip, hr_dip, [torch.Generator().manual_seed(i) for i in range(4)],
         DIPConfig(**TINY_DIP), device="cpu")
     for r in ranks2[1]:
-        res, got = r["dip"]
-        assert res.shape == (4, 1, 16, 16, 3)
-        diff = (res - ref).abs().numpy()
-        assert np.median(diff) < 1e-5
-        assert (diff > 1e-3).mean() < 0.25
-        np.testing.assert_allclose(got["psnr"], curves["psnr"], rtol=0,
-                                   atol=1e-3)
-        assert got["loss"].shape == curves["loss"].shape == (4, 2)
+        _close_to_the_lane_batch(r["dip"], ref)
+
+
+def test_sharded_lbfgs_dip_matches_the_lane_batch(ranks2, monkeypatch):
+    from tpusr_torch.engine import dip
+
+    monkeypatch.setattr(dip, "WARMUP_ITERS", LBFGS_WARMUP)
+    lr_dip, hr_dip = _dip_inputs()
+    ref = dip.dip_superresolve_batch(
+        lr_dip, hr_dip, [torch.Generator().manual_seed(i) for i in range(4)],
+        dip.DIPConfig(**TINY_DIP_LBFGS), device="cpu")
+    for r in ranks2[1]:
+        _close_to_the_lane_batch(r["dip_lbfgs"], ref)
+        np.testing.assert_array_equal(r["dip_lbfgs"][1]["evals"],
+                                      ref[1]["evals"])
 
 
 def test_sharded_dip_needs_lanes_divisible_by_the_ranks():

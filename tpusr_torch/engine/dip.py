@@ -35,22 +35,27 @@ The lane batch (``dip_superresolve_batch[_bucketed]``, tpusr's vmap) runs
 N images' independent nets as one batched computation: the lanes'
 parameters are stacked along a leading axis and ``torch.func.vmap`` runs
 ``functional_call`` of one template net over them (per-lane convs become
-grouped convs), so one Adam over the stacked leaves is N per-lane Adams.
-As in tpusr, it forces ``conv_fusion='off'``: no kernel runs there.
+grouped convs), so one Adam over the stacked leaves is N per-lane Adams,
+and L-BFGS runs over the lanes' (N, n) stack of flat vectors
+(``lane_objective``; engine/lbfgs.py's lane steppers, the zoom line search
+one host-side state machine per lane driving one batched
+value-and-gradient call per round). As in tpusr, it forces
+``conv_fusion='off'``: no kernel runs there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from tpusr_torch.device import resolve_device
-from tpusr_torch.engine.lbfgs import (ZoomLBFGS, lbfgs_fixed_init,
-                                      lbfgs_fixed_step)
+from tpusr_torch.engine.lbfgs import (ZoomLBFGSLanes, lbfgs_fixed_init_lanes,
+                                      lbfgs_fixed_step_lanes, one_lane)
 from tpusr_torch.engine.metrics import _valid_mask, psnr_masked, ssim_masked
 from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
@@ -237,14 +242,59 @@ def _head(out, hr, valid_hw, lpips_fn: Callable | None) -> list:
     return m
 
 
-def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
-              lpips_fn: Callable | None, valid_hw=None):
+def _lbfgs_stage(config: DIPConfig, x, value_and_grad, dev, assign):
+    """The L-BFGS stage after the warm-up, over N lanes' flat rows x (N, n)
+    (one row for a single run): ``run(n_iter)`` makes n_iter iterations of
+    ``config.lbfgs_line_search``, writes the rows back through
+    ``assign(x)`` and returns (the N values at the last iteration's start,
+    the gradient evaluations each lane made). ``value_and_grad(xs, lanes)``
+    as ``lane_objective`` gives it."""
+    n = x.shape[0]
+    if config.lbfgs_line_search == "fixed":
+        state = lbfgs_fixed_init_lanes(n, x.shape[1], config.lbfgs_memory,
+                                       dev)
+
+        def lbfgs_iter(p):
+            nonlocal state
+            values, g = value_and_grad(p, list(range(n)))
+            upd, state = lbfgs_fixed_step_lanes(g, state,
+                                                config.learning_rate)
+            return p + upd.to(p.dtype), values, 1
+    else:
+        zoom = ZoomLBFGSLanes(n, x.shape[1], config.lbfgs_memory, dev,
+                              x.dtype)
+
+        def lbfgs_iter(p):
+            before = np.asarray(zoom.evals)
+            p, values = zoom.step(p, value_and_grad)
+            return (p, torch.tensor(values, device=dev),
+                    np.asarray(zoom.evals) - before)
+
+    def run(n_iter):
+        nonlocal x
+        values = torch.full((n,), float("nan"), device=dev)
+        n_evals = np.zeros(n, np.int64)
+        for _ in range(n_iter):
+            x, values, k = lbfgs_iter(x)
+            n_evals += k
+        assign(x)
+        return values, n_evals
+
+    return run
+
+
+def _check_optimizer(config: DIPConfig) -> None:
     if config.optimizer not in ("adam", "lbfgs"):
         raise ValueError(f"unknown optimizer {config.optimizer!r}")
     if (config.optimizer == "lbfgs"
             and config.lbfgs_line_search not in ("fixed", "zoom")):
         raise ValueError(
             f"unknown lbfgs_line_search {config.lbfgs_line_search!r}")
+
+
+def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
+              lpips_fn: Callable | None, valid_hw=None):
+    _check_optimizer(config)
     parts = _opt_parts(config)
     _check_input(config)
     if generator is None:
@@ -314,32 +364,13 @@ def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
         noise = None  # the L-BFGS stage and its resolve are noise-free
         x, value_and_grad = flat_objective(net, downsampler, leaves, z, lr,
                                            kernel, lr_mask)
-        if config.lbfgs_line_search == "fixed":
-            state = lbfgs_fixed_init(x.numel(), config.lbfgs_memory, dev)
-
-            def lbfgs_iter(p):
-                nonlocal state
-                value, g = value_and_grad(p)
-                upd, state = lbfgs_fixed_step(g, state,
-                                              config.learning_rate)
-                return p + upd.to(p.dtype), value, 1
-        else:
-            zoom = ZoomLBFGS(x.numel(), config.lbfgs_memory, dev, x.dtype)
-
-            def lbfgs_iter(p):
-                before = zoom.evals
-                p, value = zoom.step(p, value_and_grad)
-                return p, value, zoom.evals - before
+        stage = _lbfgs_stage(config, x[None], one_lane(value_and_grad), dev,
+                             lambda xs: _assign(leaves, xs[0]))
 
         def run(n_iter):
-            nonlocal x
-            value, n_evals = float("nan"), 0
-            for _ in range(n_iter):
-                x, value, k = lbfgs_iter(x)
-                n_evals += k
-            _assign(leaves, x)
-            evals.append(n_evals)
-            return torch.as_tensor(value, dtype=torch.float32, device=dev)
+            values, n_evals = stage(n_iter)
+            evals.append(int(n_evals[0]))
+            return values[0]
 
     for _ in range(n_chunks):
         heads.append(metrics_of())  # chunk head == iteration % log_freq == 0
@@ -479,9 +510,75 @@ def lane_iteration(template, downsampler, params, optimizer, z, noise,
     return losses.detach()
 
 
+def lane_leaves(params, z, kernel=None) -> list[torch.Tensor]:
+    """The lanes' trained leaves in ``flat_objective``'s order: the stacked
+    parameters, then z and the kernel where they are trained (require
+    grad)."""
+    extra = [t for t in (z, kernel) if t is not None and t.requires_grad]
+    return list(params.values()) + extra
+
+
+def lane_objective(template, downsampler, params, z, lr_images, kernel=None,
+                   lr_mask=None):
+    """L-BFGS's view of the lanes' DIP losses, ``flat_objective`` per lane:
+    (x, value_and_grad). x (N, n) holds each lane's ``lane_leaves`` as one
+    flat row, in the order of its single run's flat vector.
+    ``value_and_grad(xs, lanes)`` evaluates the lanes listed in ``lanes``
+    at the rows of xs (len(lanes), n) and returns their losses (k,) and
+    flat gradients (k, n): the deterministic objective (no reg noise,
+    batch statistics, running statistics untouched), one vmapped forward
+    and one backward of the losses' sum, whose gradient is each lane's own
+    (lanes share no leaf). z, lr_images, kernel and lr_mask as
+    ``lane_iteration`` takes them."""
+    from torch.func import vmap
+
+    leaves = lane_leaves(params, z, kernel)
+    names = list(params)
+    shapes = [leaf.shape[1:] for leaf in leaves]
+    sizes = [math.prod(sh) for sh in shapes]
+    n = leaves[0].shape[0]
+    train_z, train_k = z.requires_grad, (kernel is not None
+                                         and kernel.requires_grad)
+    loss_fn = vmap(functools.partial(_lane_loss, template, downsampler),
+                   in_dims=(0, 0, 0, None if kernel is None else 0,
+                            None if lr_mask is None else 0))
+    z, kernel = z.detach(), None if kernel is None else kernel.detach()
+
+    def value_and_grad(xs, lanes):
+        xs = xs.detach().requires_grad_()
+        parts = [p.reshape(len(lanes), *sh)
+                 for p, sh in zip(xs.split(sizes, 1), shapes)]
+        rest = iter(parts[len(names):])
+        sel = (None if len(lanes) == n
+               else torch.tensor(lanes, device=xs.device))
+
+        def pick(t):
+            return t if sel is None or t is None else t.index_select(0, sel)
+
+        losses = loss_fn(dict(zip(names, parts)),
+                         next(rest) if train_z else pick(z), pick(lr_images),
+                         next(rest) if train_k else pick(kernel),
+                         pick(lr_mask))
+        (grad,) = torch.autograd.grad(losses.sum(), xs)
+        return losses.detach(), grad
+
+    x = torch.cat([leaf.detach().reshape(n, -1) for leaf in leaves], 1)
+    return x, value_and_grad
+
+
+@torch.no_grad()
+def _assign_lanes(leaves, x: torch.Tensor) -> None:
+    """Write the lanes' flat rows x (N, n) into the stacked leaves."""
+    offset = 0
+    for p in leaves:
+        size = p[0].numel()
+        p.copy_(x[:, offset:offset + size].reshape(p.shape))
+        offset += size
+
+
 def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
                lpips_fn: Callable | None, valid_hws=None):
-    """N lanes of ``_dip_core``'s Adam path as one batched computation.
+    """N lanes of ``_dip_core`` as one batched computation.
 
     Lane i is the single-image run with ``generators[i]``: its net is
     initialised from it, and the device generator it seeds draws the lane's
@@ -489,14 +586,15 @@ def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
     randomness would not reproduce a lane's stream). The forward is
     train-mode with the running-statistics update skipped: vmap refuses
     BatchNorm's in-place update, and no DIP forward ever reads those
-    statistics (every one normalises with its batch's).
+    statistics (every one normalises with its batch's). L-BFGS runs on the
+    lanes' stacked flat vectors (``lane_objective``): 'fixed' steps every
+    lane with no host sync; 'zoom' runs one line search per lane on the
+    host, each round one batched value-and-gradient call over the lanes
+    still searching, so each lane takes its single run's trial points.
     """
     from torch.func import vmap
 
-    if config.optimizer != "adam":
-        raise ValueError(
-            f"the lane batch runs Adam; optimizer {config.optimizer!r} runs "
-            f"one image at a time (dip_superresolve_scan_bucketed)")
+    _check_optimizer(config)
     parts = _opt_parts(config)
     _check_input(config)
     config = dataclasses.replace(config, conv_fusion="off")
@@ -529,15 +627,13 @@ def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
         z = _nchw(meshgrid_input(h, w).to(dev))[None].expand(
             n, -1, -1, -1, -1).contiguous()
     params = stack_lanes(nets, dev)
-    leaves = list(params.values())
     if "input" in parts:
         z = z.detach().clone().requires_grad_()
-        leaves.append(z)
     kernel = None
     if "down" in parts:
         kernel = downsampler.kernel.detach()[None].repeat(n, 1, 1)
         kernel.requires_grad_()
-        leaves.append(kernel)
+    leaves = lane_leaves(params, z, kernel)
 
     lr_mask = None
     if valid_hws is not None:
@@ -560,10 +656,9 @@ def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
 
     n_chunks, chunk_len, remainder = _chunks(config)
     std = config.reg_noise_std
-    optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
     noise = None
 
-    def run(n_iter):
+    def adam_run(optimizer, n_iter):
         nonlocal noise
         losses = torch.full((n,), float("nan"), device=dev)
         for _ in range(n_iter):
@@ -573,11 +668,32 @@ def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
                                     lr_mask)
         return losses
 
-    heads, losses = [], []
+    heads, losses, evals = [], [], []
+    if config.optimizer == "adam":
+        optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
+
+        def run(n_iter):
+            evals.append(np.full(n, n_iter, np.int64))
+            return adam_run(optimizer, n_iter)
+    else:
+        adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
+        noise = None  # the L-BFGS stage and its resolve are noise-free
+        x, value_and_grad = lane_objective(template, downsampler, params, z,
+                                           lr, kernel, lr_mask)
+        stage = _lbfgs_stage(config, x, value_and_grad, dev,
+                             functools.partial(_assign_lanes, leaves))
+
+        def run(n_iter):
+            values, n_evals = stage(n_iter)
+            evals.append(n_evals)
+            return values
+
     for _ in range(n_chunks):
         heads.append(metrics_of())
         losses.append(run(chunk_len))
     run(remainder)
+    rem = evals.pop()
+    evals[-1] = evals[-1] + rem  # the remainder counts in the last chunk
 
     z_final = z
     if not config.resolve_clean and noise is not None:
@@ -585,11 +701,9 @@ def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
     with torch.no_grad():
         resolved = forward_nhwc(z_final).contiguous()
     m = torch.stack(heads, 1).float().cpu().numpy()  # (N, chunks, 3)
-    evals = [chunk_len] * n_chunks
-    evals[-1] += remainder
     curves = {"psnr": m[..., 0], "ssim": m[..., 1], "lpips": m[..., 2],
               "loss": torch.stack(losses, 1).float().cpu().numpy(),
-              "evals": np.tile(np.asarray(evals, np.int64), (n, 1))}
+              "evals": np.stack(evals, 1)}
     return resolved, curves
 
 
@@ -602,9 +716,11 @@ def dip_superresolve_batch(lr_images, hr_images,
 
     lr_images (N, 1, h, w, 3), hr_images (N, 1, H, W, 3), N generators:
     each lane optimises a fresh net of its own, as ``dip_superresolve``
-    with that generator and conv_fusion 'off' would. Adam only (L-BFGS
-    lanes run one at a time, ``dip_superresolve_scan_bucketed``). Returns
-    (N, 1, H, W, 3) and curves with a leading N axis.
+    with that generator and conv_fusion 'off' would, with Adam or L-BFGS
+    ('fixed' or 'zoom', the lanes batched through ``lane_objective``).
+    Returns (N, 1, H, W, 3) and curves with a leading N axis ('evals' per
+    lane: each lane's own gradient evaluations, as its single run counts
+    them).
     """
     return _lane_core(lr_images, hr_images, config, list(generators),
                       resolve_device(device), lpips_fn)

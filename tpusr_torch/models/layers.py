@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 from typing import Callable, Sequence
 
 import torch
@@ -30,6 +31,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.ops.fused_conv import fused_conv3x3
+
+# The conv-fusion default, read once at import as tpusr reads it
+# (tpusr/models/layers.py:79-85): every 'auto' fusion field defers to it,
+# an explicit 'off' wins over it. tpusr's third value, 'interpret', runs
+# its Pallas kernels in interpret mode and has no counterpart here.
+FUSION_MODES = ("auto", "off")
+_CONV_FUSION_DEFAULT = os.environ.get("TPUSR_CONV_FUSION", "auto")
+
+
+def fusion_mode(attr: str = "auto") -> str:
+    """Resolve a fusion field: 'auto' defers to the import-time
+    TPUSR_CONV_FUSION default, an explicit 'off' wins over it. Any other
+    value, in the field or in the environment, raises ValueError."""
+    mode = _CONV_FUSION_DEFAULT if attr == "auto" else attr
+    if mode not in FUSION_MODES:
+        where = " (TPUSR_CONV_FUSION)" if attr == "auto" else ""
+        raise ValueError(f"conv fusion {mode!r}{where} not in "
+                         f"{'/'.join(FUSION_MODES)}")
+    return mode
 
 
 def _uniform(shape, fan_in: int, generator: torch.Generator | None):
@@ -114,7 +134,8 @@ class Conv(nn.Module):
 
     ``auto_fuse=True`` with ``fusion='auto'`` sends a plain call of a 3x3
     stride-1 conv through the fused kernel too (no prologue, no stats), with
-    the bias added after; ``fusion='off'`` keeps it on ``F.conv2d``.
+    the bias added after; ``fusion='off'`` keeps it on ``F.conv2d``, and
+    so does 'auto' under TPUSR_CONV_FUSION=off (``fusion_mode``).
     ``forward(x, fuse=...)`` overrides ``auto_fuse`` for one call, as the
     JAX package's eval forward rebuilds its generator with auto_fuse on.
     """
@@ -125,8 +146,7 @@ class Conv(nn.Module):
                  generator: torch.Generator | None = None,
                  auto_fuse: bool = False, fusion: str = "auto"):
         super().__init__()
-        if fusion not in ("auto", "off"):
-            raise ValueError(f"fusion {fusion!r} not in auto/off")
+        fusion = fusion_mode(fusion)
         k = kernel_size
         fan_in = k * k * in_channels
         self.stride, self.pad_mode, self.dtype = stride, pad_mode, dtype

@@ -19,7 +19,8 @@ in a few batched operations, as the JAX package repacks per call); other
 widths run each dense-block conv through kernel A (``ops/fused_conv.py``,
 zero padding); trunk_conv, the upconvs and conv_hr go through kernel A.
 On a CPU tensor both kernels run their plain versions. ``fusion='off'``
-is the unfused dataflow on ``F.conv2d``.
+is the unfused dataflow on ``F.conv2d``; ``'auto'`` defers to
+TPUSR_CONV_FUSION, read at import (``layers.fusion_mode``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.device import resolve_device
-from tpusr_torch.models.layers import Conv, _nchw, _nhwc, _uniform, activation
+from tpusr_torch.models.layers import (Conv, _nchw, _nhwc, _uniform,
+                                      activation, fusion_mode)
 from tpusr_torch.ops.dense_block import dense_block, packed_weights
 from tpusr_torch.ops.fused_conv import fused_conv3x3
 
@@ -59,8 +61,8 @@ class DenseBlock(nn.Module):
                  dtype: torch.dtype | None = None, fusion: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.dtype, self.fusion = dtype, fusion
-        self.kernel_c = fusion != "off" and (nf, gc) == (64, 32)
+        self.dtype, self.fusion = dtype, fusion_mode(fusion)
+        self.kernel_c = self.fusion != "off" and (nf, gc) == (64, 32)
         for k in range(1, 6):
             cin = nf + (k - 1) * gc
             cout = gc if k < 5 else nf
@@ -126,8 +128,7 @@ class RRDBNet(nn.Module):
         super().__init__()
         if scale < 1 or scale & (scale - 1):
             raise ValueError(f"scale {scale} is not a power of 2")
-        if fusion not in ("auto", "off"):
-            raise ValueError(f"fusion {fusion!r} not in auto/off")
+        fusion = fusion_mode(fusion)
         dev = resolve_device(device)
         self.dtype, self.n_up = dtype, scale.bit_length() - 1
 

@@ -16,7 +16,8 @@ head: 1x1 conv to n_out + sigmoid.
 part of ``up{i}_conv`` through the fused 3x3 kernel (ops/fused_conv.py): the
 preceding BN's normalize (+ LeakyReLU) rides the conv's input read and the
 conv's stats epilogue replaces the next BN's reduction. Same math as
-``'off'``, the unfused dataflow.
+``'off'``, the unfused dataflow. ``'auto'`` defers to TPUSR_CONV_FUSION,
+read at import (``layers.fusion_mode``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from tpusr_torch.models.layers import (
     SplitConv,
     activation,
     center_crop_to_min,
+    fusion_mode,
     pool2x2,
     upsample2x,
 )
@@ -61,8 +63,7 @@ class SkipNet(nn.Module):
                  conv_fusion: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if conv_fusion not in ("auto", "off"):
-            raise ValueError(f"conv_fusion {conv_fusion!r} not in auto/off")
+        conv_fusion = fusion_mode(conv_fusion)
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {list(_DTYPES)}")
         self.n_scales = len(num_channels_down)

@@ -3,9 +3,10 @@
 Counterpart of ``tpusr/parallel/dip_batch.py``. DIP fits an independent
 fresh net per image, so multi-image DIP needs no collective while it
 optimises: each rank of the 'data' axis runs its N/W lanes through the
-lane batch (``engine/dip.py::dip_superresolve_batch``) and the results are
-all-gathered at the end, so every rank returns all N images and curves,
-as tpusr's global array does.
+lane batch (``engine/dip.py::dip_superresolve_batch``, Adam or L-BFGS
+'fixed' / 'zoom': a rank's line searches wait on its own lanes only) and
+the results are all-gathered at the end, so every rank returns all N
+images and curves, as tpusr's global array does.
 """
 
 from __future__ import annotations
