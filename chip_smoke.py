@@ -143,6 +143,24 @@ Phases (any failure raises, so the exit code is non-zero):
      the batched calls per iteration beside each lane's evaluations.
      Phase 2 holds A and B at the new paths' shapes: a slab's window
      (352 x 128) and a DP rank's batch of 4.
+ 11. tpusr's orbax checkpoint directories (``tpusr_torch/io``: the port's
+     own zstd decoder, OCDBT reader, zarr v2 and orbax trees): (a) the
+     full-width gan_train state (bench.py's: batch 8, 192^2 HR, 16 blocks,
+     bf16 activations and D state, g_fuse='train', seed 0) after 2 steps,
+     written by ``save_train_state`` and read by ``load_train_state`` into
+     a fresh state: every leaf, moment and the step bit-equal; the bytes
+     on disk and the write and read seconds (MB/s) beside torch.save /
+     torch.load of the same tree; (b) one step from the restored state
+     against one from the in-memory state (cuDNN deterministic, TF32
+     off): losses bit-equal, or apart by no more than two steps from two
+     restores of the directory; 72 A and 36 B launches each; (c)
+     ``cli/eval_gan.run`` with --model_path that directory on the phase-5
+     synthetic tree: 36 A launches per image, its PNGs and metrics
+     bit-equal to the .pth route of the same G; (d) the committed
+     tpusr-written checkpoint (tests/data/orbax_tpusr_small: OCDBT nodes
+     and zarr chunks compressed with zstd) decoded on the host by the
+     port's zstd, OCDBT and zarr code: every leaf equal to its seed's
+     values.
 The line before the last holds the kernels' JSON record (each kernel with
 its design and its launches per main path), the last line
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -2866,6 +2884,243 @@ def run_multi_device():
                        shard=shard_times, lanes=lanes, lbfgs=lbfgs_rows)
 
 
+# ------------------------------------------------------------ checkpoints
+CKPT_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "orbax_tpusr_small")
+CKPT_FIXTURE_SEED = 20261017
+
+
+def ckpt_fixture_tree():
+    """The leaves of the committed tpusr-written checkpoint
+    (tests/data/orbax_tpusr_small), from its seed; bf16 as its uint16 bits.
+    A copy of tests/test_torch_orbax.py's fixture_tree."""
+    rng = np.random.default_rng(CKPT_FIXTURE_SEED)
+    return {
+        "f32": rng.standard_normal((3, 5)).astype(np.float32),
+        "bf16": (rng.standard_normal(40).astype(np.float32).view(
+            np.uint32) >> 16).astype(np.uint16),
+        "i32": rng.integers(-2**31, 2**31 - 1, (4, 4), dtype=np.int32),
+        "step": np.asarray(rng.integers(0, 1000), np.int32),
+        "nested": {"ramp": (np.arange(8192) % 61).astype(np.float32),
+                   "pair": [rng.standard_normal(4).astype(np.float32),
+                            rng.standard_normal((2, 3)).astype(np.float32)]},
+        "random": rng.standard_normal(32768).astype(np.float32),
+    }
+
+
+def leaf_bits(t):
+    """A CPU tensor's bytes (bf16 through its int16 view)."""
+    t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return t.contiguous().numpy().reshape(-1).view(np.uint8)
+
+
+def tree_mismatch(a, b, where=""):
+    """The first place where two trees of CPU tensors (dicts, lists, None)
+    differ in structure, shape, dtype or bits; None when they are equal."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            return f"{where}: keys"
+        return next((m for k in b for m in [tree_mismatch(
+            a[k], b[k], f"{where}/{k}")] if m), None)
+    if isinstance(b, (list, tuple)):
+        if not isinstance(a, (list, tuple)) or len(a) != len(b):
+            return f"{where}: length"
+        return next((m for i, (x, y) in enumerate(zip(a, b)) for m in [
+            tree_mismatch(x, y, f"{where}/{i}")] if m), None)
+    if b is None:
+        return None if a is None else f"{where}: not None"
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return (f"{where}: {a.dtype}{tuple(a.shape)} vs "
+                f"{b.dtype}{tuple(b.shape)}")
+    return None if np.array_equal(leaf_bits(a), leaf_bits(b)) else \
+        f"{where}: values"
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def timed_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_ckpt_round_trip(root, cfg):
+    """Phase 11a: the full-width gan_train state (seed 0) after 2 steps,
+    written by save_train_state and read into a fresh state: every leaf,
+    moment and the step bit-equal; bytes, seconds and MB/s beside
+    torch.save / torch.load of the same tree. Returns (state, dir)."""
+    from tpusr_torch.engine.gan import gan_train_step
+    from tpusr_torch.io.checkpoint import load_train_state, save_train_state
+    from tpusr_torch.io.weights import (export_flax_gan_state,
+                                        load_flax_gan_state)
+
+    state = gan_state(cfg)
+    with exact_convs():
+        for seed in (0, 1):
+            gan_train_step(state, *train_batch(seed), cfg)
+    ckpt = os.path.join(root, "ckpt_epoch1")
+    _, w_s = timed_s(lambda: save_train_state(ckpt, state))
+    back, r_s = timed_s(lambda: load_train_state(ckpt, gan_state(cfg)))
+    want = export_flax_gan_state(state)
+    bad = tree_mismatch(export_flax_gan_state(back), want)
+    if bad or back.step != state.step or state.step != 2:
+        raise AssertionError(f"orbax round trip differs at {bad} (step "
+                             f"{back.step} vs {state.step})")
+    pt = os.path.join(root, "state.pt")
+    _, tw_s = timed_s(lambda: torch.save(export_flax_gan_state(state), pt))
+    _, tr_s = timed_s(lambda: load_flax_gan_state(
+        gan_state(cfg), torch.load(pt, weights_only=True)))
+    nb, tb = dir_bytes(ckpt), os.path.getsize(pt)
+    leaves = sum(1 for d, _, fs in os.walk(ckpt) if ".zarray" in fs)
+    print(f"phase 11a: full-width gan_train state (16 blocks, D at 192^2, "
+          f"bf16 D state, step {state.step}) through save_train_state / "
+          f"load_train_state bit-equal ({leaves} leaves); orbax directory "
+          f"{nb} bytes, write {w_s:.3f} s ({nb / w_s / 1e6:.1f} MB/s), read "
+          f"{r_s:.3f} s ({nb / r_s / 1e6:.1f} MB/s); torch.save / torch.load "
+          f"of the same tree {tb} bytes, write {tw_s:.3f} s "
+          f"({tb / tw_s / 1e6:.1f} MB/s), read {tr_s:.3f} s "
+          f"({tb / tr_s / 1e6:.1f} MB/s) (host clock, export and restore "
+          f"into the card's state included)")
+    return state, ckpt, dict(bytes=nb, write_s=w_s, read_s=r_s,
+                             torch_bytes=tb, torch_write_s=tw_s,
+                             torch_read_s=tr_s)
+
+
+def check_ckpt_resumed_step(state, ckpt, cfg):
+    """Phase 11b: one step from the restored state against one from the
+    in-memory state, on the same batch (cuDNN deterministic, TF32 off):
+    the losses bit-equal, or within the spread of two steps from two
+    restores of the same directory; 72 A and 36 B launches each."""
+    from tpusr_torch.engine.gan import gan_train_step
+    from tpusr_torch.io.checkpoint import load_train_state
+
+    batch = train_batch(2)
+    runs = {}
+    with exact_convs():
+        for name in ("memory", "restored", "restored again"):
+            st = state if name == "memory" else load_train_state(
+                ckpt, gan_state(cfg))
+            reset_counts()
+            _, logs = gan_train_step(st, *batch, cfg)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if (counts["fused_conv3x3_fwd"], counts["fused_conv3x3_wgrad"]
+                    ) != (72, 36):
+                raise AssertionError(f"resumed step launches {counts}")
+            runs[name] = (float(logs["loss_D"]), float(logs["loss_G"]))
+            del st
+    diff = max(abs(a - b) for a, b in zip(runs["memory"], runs["restored"]))
+    spread = max(abs(a - b) for a, b in zip(runs["restored"],
+                                            runs["restored again"]))
+    print(f"phase 11b: one step from the restored state: losses (D, G) "
+          f"{runs['restored']} against {runs['memory']} from the in-memory "
+          f"state ({'bit-equal' if diff == 0 else f'{diff:.3e} apart'}); "
+          f"two restores apart by {spread:.3e}; 72 A and 36 B launches each")
+    if diff > spread:
+        raise AssertionError(f"resumed step's losses {runs}")
+    return counts
+
+
+def check_ckpt_eval(g_state, ckpt):
+    """Phase 11c: the eval CLI with --model_path the orbax directory on the
+    phase-5 synthetic tree: 36 A launches per image, its PNGs and metrics
+    bit-equal to the .pth route of the same G (``g_state``, the written
+    state's G)."""
+    from PIL import Image
+    from tpusr_torch.cli import eval_gan
+    from tpusr_torch.io.checkpoint import (export_torch_generator,
+                                           save_torch_pth)
+
+    with tempfile.TemporaryDirectory() as root:
+        write_valid_tree(root)
+        pth = os.path.join(root, "trained_G.pth")
+        save_torch_pth(export_torch_generator(g_state, 16, 3), pth)
+        outs = {}
+        with exact_convs():
+            for name, model in (("orbax", ckpt), ("pth", pth)):
+                out = os.path.join(root, f"out_{name}")
+                os.makedirs(out)
+                reset_counts()
+                metrics = eval_gan.run([
+                    "--data_dir", root, "--out_dir", out, "--model_path",
+                    model, "--save_images", "True", "--device", "cuda"])
+                torch.cuda.synchronize()
+                counts = read_counts()
+                (stamp,) = os.listdir(os.path.join(out, "out", "GANx8"))
+                img_dir = os.path.join(out, "out", "GANx8", stamp, "images")
+                outs[name] = (metrics, counts, {
+                    f: np.asarray(Image.open(os.path.join(img_dir, f)))
+                    for f in sorted(os.listdir(img_dir))})
+    (m_o, c_o, img_o), (m_p, _, img_p) = outs["orbax"], outs["pth"]
+    if c_o != {**{k: 0 for k in c_o}, "fused_conv3x3_fwd": 72}:
+        raise AssertionError(f"eval from the orbax directory launched "
+                             f"{c_o}")
+    same = (set(img_o) == set(img_p) == {"0801.png", "0802.png"}
+            and all(np.array_equal(img_o[f], img_p[f]) for f in img_o)
+            and all(m_o[k] == m_p[k] for k in ("avg_psnr", "avg_ssim")))
+    print(f"phase 11c: eval CLI from the orbax directory: avg_psnr "
+          f"{m_o['avg_psnr']!r} avg_ssim {m_o['avg_ssim']!r}, .pth route "
+          f"{m_p['avg_psnr']!r} {m_p['avg_ssim']!r}; PNGs "
+          f"{'bit-equal' if same else 'DIFFER'}; launches {c_o}")
+    if not same:
+        raise AssertionError("eval from the orbax directory differs from "
+                             "the .pth route")
+    return c_o
+
+
+def check_ckpt_fixture():
+    """Phase 11d: the committed tpusr-written checkpoint (OCDBT, zstd-
+    compressed nodes and chunks) decoded by the port's own zstd, OCDBT and
+    zarr code on this host: every leaf equals its seed's values."""
+    from tpusr_torch.io.orbax import read_tree
+    from tpusr_torch.native import zstd
+
+    got, secs = timed_s(lambda: read_tree(CKPT_FIXTURE))
+    want = ckpt_fixture_tree()
+    flat = [(("bf16",), got["bf16"], want["bf16"])]
+    for path in (("f32",), ("i32",), ("step",), ("random",),
+                 ("nested", "ramp"), ("nested", "pair", 0),
+                 ("nested", "pair", 1)):
+        a, b = got, want
+        for k in path:
+            a, b = a[k], b[k]
+        flat.append((path, a, b))
+    for path, a, b in flat:
+        bits = leaf_bits(a)
+        if a.shape != b.shape or not np.array_equal(
+                bits, np.ascontiguousarray(b).reshape(-1).view(np.uint8)):
+            raise AssertionError(f"fixture leaf {path} differs")
+    print(f"phase 11d: the tpusr-written fixture ({dir_bytes(CKPT_FIXTURE)} "
+          f"bytes, OCDBT + zstd) decoded on the host by the port's own "
+          f"zstd ({os.path.basename(zstd._load()._name)}), {len(flat)} "
+          f"leaves equal to their seed's values, in {secs:.3f} s")
+
+
+def run_checkpoints():
+    """Phase 11: tpusr's orbax checkpoint directories in the port."""
+    import dataclasses
+    from tpusr_torch.engine.gan import GANTrainConfig
+
+    cfg = dataclasses.replace(GANTrainConfig(dtype="bfloat16"),
+                              g_fuse="train")  # bench.py's gan_train
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        state, ckpt, row = check_ckpt_round_trip(root, cfg)
+        g_state = {k: v.clone() for k, v in state.G.state_dict().items()}
+        paths["srgan train resumed"] = check_ckpt_resumed_step(state, ckpt,
+                                                               cfg)
+        paths["srgan eval orbax"] = check_ckpt_eval(g_state, ckpt)
+        del state
+        torch.cuda.empty_cache()
+    check_ckpt_fixture()
+    return paths, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -3008,6 +3263,13 @@ def main() -> int:
     print(f"phase 10: multi-device paths ran (sharded eval through kernel "
           f"A, data-parallel training through A and B) in "
           f"{time.perf_counter() - t10:.1f} s")
+
+    t11 = time.perf_counter()
+    ckpt_paths, _ = run_checkpoints()
+    paths.update(ckpt_paths)
+    print(f"phase 11: orbax checkpoints written, read and resumed (the "
+          f"resumed step through A and B, eval from the directory through "
+          f"A) in {time.perf_counter() - t11:.1f} s")
 
     replaces = {"fused_conv3x3_fwd": "tpusr/ops/pallas_conv.py:72",
                 "fused_conv3x3_wgrad": "tpusr/ops/pallas_conv.py:297",

@@ -91,7 +91,14 @@ def test_infer_generator_arch(style):
 
 
 def test_a_directory_raises(tmp_path):
-    with pytest.raises(ValueError, match="export_torch_generator"):
+    """A --model_path directory is read as an orbax checkpoint: one without
+    _METADATA, and a zarr3 one, raise with their reasons (an orbax
+    directory itself loads: tests/test_torch_orbax.py)."""
+    with pytest.raises(ValueError, match="not an orbax checkpoint"):
+        load_generator(str(tmp_path), GANTrainConfig(), "cpu")
+    (tmp_path / "_METADATA").write_text(
+        '{"tree_metadata": {}, "use_ocdbt": true, "use_zarr3": true}')
+    with pytest.raises(ValueError, match="zarr3"):
         load_generator(str(tmp_path), GANTrainConfig(), "cpu")
 
 

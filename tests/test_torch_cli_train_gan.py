@@ -140,13 +140,22 @@ def test_pretrained_pair_from_tpusr(tree, tmp_path):
 
 
 def test_orbax_directories_are_refused(tmp_path):
+    """Only a directory that is not an orbax checkpoint (no _METADATA), or
+    a zarr3 one, is refused, with its reason; tpusr's and the port's orbax
+    directories resume (tests/test_torch_orbax.py)."""
     cfg = GANTrainConfig(hr_patch=64, batch_size=2, residual_blocks_count=2)
     state = create_gan_state(cfg, 1e-4, device="cpu")
     (tmp_path / "pre_trained_state").mkdir()
-    with pytest.raises(FileNotFoundError, match="orbax"):
+    with pytest.raises(ValueError, match="no _METADATA"):
         train_gan.load_pretrained(str(tmp_path), state, cfg)
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="no _METADATA"):
         load_train_state(str(tmp_path / "pre_trained_state"), state)
+    (tmp_path / "pre_trained_state" / "_METADATA").write_text(
+        '{"tree_metadata": {}, "use_ocdbt": false, "use_zarr3": true}')
+    with pytest.raises(ValueError, match="zarr3"):
+        train_gan.load_pretrained(str(tmp_path), state, cfg)
+    with pytest.raises(FileNotFoundError, match="neither"):
+        train_gan.load_pretrained(str(tmp_path / "none"), state, cfg)
 
 
 def test_data_parallel_is_not_ported(tree, tmp_path, capsys):

@@ -1,8 +1,11 @@
-"""tpusr_torch and chip_smoke.py stand alone: no JAX, no tpusr.
+"""tpusr_torch and chip_smoke.py stand alone: no JAX, no tpusr, and none
+of the libraries behind orbax checkpoints (the port reads and writes them
+with its own code).
 
 A fresh interpreter imports every module of the port and checks that no
-jax/flax/optax/tpusr module came along; an AST scan finds no such import
-anywhere in the port's sources or in chip_smoke.py.
+jax/flax/optax/tpusr/orbax/tensorstore/zstandard/numcodecs/zarr module
+came along; an AST scan finds no such import anywhere in the port's
+sources or in chip_smoke.py.
 """
 
 import ast
@@ -14,7 +17,8 @@ import sys
 import tpusr_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusr")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusr", "orbax",
+             "tensorstore", "zstandard", "numcodecs", "zarr")
 
 
 def _port_modules():
@@ -36,7 +40,9 @@ def test_importing_the_port_loads_no_jax_or_tpusr():
               "tpusr_torch.parallel.spatial", "tpusr_torch.parallel.mesh",
               "tpusr_torch.parallel.gan_dp", "tpusr_torch.parallel.dip_batch",
               "tpusr_torch.native", "tpusr_torch.native.bench",
-              "tpusr_torch.utils.convert"):
+              "tpusr_torch.utils.convert", "tpusr_torch.native.zstd",
+              "tpusr_torch.io.ocdbt", "tpusr_torch.io.zarr",
+              "tpusr_torch.io.orbax"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

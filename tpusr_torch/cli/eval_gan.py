@@ -7,7 +7,9 @@ Usage (flags mirror the JAX CLI, itself eval_GAN.py:122-134, plus
         [--noise_type gauss --noise_param 0.05] [--factor 8] \
         [--residual_blocks 16] [--dtype float32|bfloat16] [--device cuda]
 
-Loads a reference-named generator .pth, runs full-image inference at batch
+Loads a reference-named generator .pth or the ``params_G`` / ``stats_G``
+of an orbax state directory (tpusr's or the port's ``{prefix}_state`` or
+``ckpt_epoch{n}``), runs full-image inference at batch
 1 on ``DIV2K_valid_LR_x8`` against ``DIV2K_valid_HR`` (the generator's 3x3
 convs through kernel A), and writes the same ``out/GANx{f}/<timestamp>``
 tree, PNGs and ``*_log.txt`` as the JAX CLI. As there, HR images are in
@@ -48,6 +50,8 @@ from tpusr_torch.io.checkpoint import (import_torch_generator,
                                        load_torch_state_dict)
 from tpusr_torch.io.images import save_image, to_uint8
 from tpusr_torch.io.logs import save_log
+from tpusr_torch.io.orbax import read_tree
+from tpusr_torch.io.weights import load_flax_generator
 from tpusr_torch.models.lpips import make_lpips
 from tpusr_torch.models.srgan import N_SHUFFLES
 from tpusr_torch.parallel.mesh import make_mesh
@@ -56,22 +60,21 @@ from tpusr_torch.parallel.spatial import (sharded_generator_forward,
 
 
 def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
-    """A reference-named torch .pth (DDP prefixes stripped) -> (Generator
-    on ``device``, config).
+    """A reference-named torch .pth (DDP prefixes stripped) or an orbax
+    state directory (its ``params_G`` and ``stats_G``, as tpusr reads it)
+    -> (Generator on ``device``, config).
 
     config's residual_blocks_count is corrected to what the checkpoint
     holds, with a warning; a pixel-shuffle count that does not fit
     config.factor raises with the factor the model was trained for.
     """
-    if os.path.isdir(model_path) or not model_path.endswith(".pth"):
-        raise ValueError(
-            f"{model_path}: tpusr_torch reads generator .pth files only; an "
-            f"orbax checkpoint directory needs JAX. Convert it with tpusr: "
-            f"tpusr.io.checkpoint.export_torch_generator(params, stats) and "
-            f"save_torch_pth(sd, 'G.pth')")
     n_shuffles = N_SHUFFLES[config.factor]
-    sd = load_torch_state_dict(model_path)
-    rb, ns = infer_generator_arch(sd)
+    if model_path.endswith(".pth"):
+        sd = load_torch_state_dict(model_path)
+        rb, ns = infer_generator_arch(sd)
+    else:
+        state = read_tree(model_path)
+        rb, ns = infer_generator_arch(state["params_G"])
     if ns != n_shuffles:
         ckpt_factor = {v: k for k, v in N_SHUFFLES.items()}[ns]
         raise ValueError(
@@ -85,8 +88,11 @@ def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
             f"--residual_blocks {config.residual_blocks_count}")
         config = dataclasses.replace(config, residual_blocks_count=rb)
     generator = build_generator(config, device)
-    generator.load_state_dict(import_torch_generator(
-        sd, residual_blocks_count=rb, n_shuffles=ns))
+    if model_path.endswith(".pth"):
+        generator.load_state_dict(import_torch_generator(
+            sd, residual_blocks_count=rb, n_shuffles=ns))
+    else:
+        load_flax_generator(generator, state["params_G"], state["stats_G"])
     return generator, config
 
 

@@ -9,15 +9,19 @@ Usage (flags and defaults are tpusr's, itself train_GAN.py:211-224, plus
 
 Two phases (train_GAN.py:180-205), pre-train then fine-tune, each with
 fresh Adam; after each, the generator and discriminator as reference-named
-.pth files, the port's whole training state (``{prefix}_state``, a
-torch.save file) and a metrics log, under
+.pth files, the whole training state (``{prefix}_state``, an orbax
+checkpoint directory in tpusr's tree) and a metrics log, under
 ``<out>/trained/GANx{f}/<timestamp>/``. The default trainer keeps the
 uint8 images on the card and crops there (``engine/gan_epochs.py``), one
 chunk per log cadence; ``--host_loop True`` runs the reference-style
-per-step loop. --resume takes a state file; --pre_trained_models_path a
-directory holding ``pre_trained_state`` or the ``pre_trained_srgan_G.pth``
-/ ``_D.pth`` pair (both packages write the pair). An orbax directory of
-tpusr is refused. --profile_dir is accepted and unused, as in tpusr.
+per-step loop. --checkpoint_every writes ``ckpt_epoch{n}`` directories.
+--resume takes such a state directory (or a ``{prefix}_state``), written
+by tpusr or by the port (or a state file of the port's earlier torch.save
+format); --pre_trained_models_path a run directory holding
+``pre_trained_state`` (tpusr's or the port's) or the
+``pre_trained_srgan_G.pth`` / ``_D.pth`` pair (both packages write the
+pair). tpusr's train CLI resumes the port's directories the same way.
+--profile_dir is accepted and unused, as in tpusr.
 
 --data_parallel True trains data-parallel over W ranks, one per card
 (``parallel/gan_dp.py``): each step's global batch of --batch_size (which
@@ -184,20 +188,20 @@ def save_phase_models(state, prefix, out_dir, config: GANTrainConfig):
 
 
 def load_pretrained(path: str, state, config: GANTrainConfig):
-    """The pre-trained nets in ``path`` into ``state`` in place: the port's
-    ``pre_trained_state`` file, else the ``pre_trained_srgan_G.pth`` /
+    """The pre-trained nets in ``path`` into ``state`` in place: its
+    ``pre_trained_state`` (an orbax directory of tpusr or the port, or the
+    port's earlier state file), else the ``pre_trained_srgan_G.pth`` /
     ``_D.pth`` pair (weights and running statistics: what the fine-tune
     phase keeps, with fresh Adam)."""
     st = os.path.join(path, "pre_trained_state")
-    if os.path.isfile(st):
+    if os.path.exists(st):
         return load_train_state(st, state)
     g_pth = os.path.join(path, "pre_trained_srgan_G.pth")
     d_pth = os.path.join(path, "pre_trained_srgan_D.pth")
     if not (os.path.isfile(g_pth) and os.path.isfile(d_pth)):
         raise FileNotFoundError(
-            f"{path} holds neither a tpusr_torch pre_trained_state file nor "
-            f"the pre_trained_srgan_G.pth / _D.pth pair (a tpusr orbax "
-            f"pre_trained_state directory needs JAX)")
+            f"{path} holds neither a pre_trained_state checkpoint nor the "
+            f"pre_trained_srgan_G.pth / _D.pth pair")
     with torch.no_grad():
         for net, sd in (
                 (state.G, import_torch_generator(
@@ -235,7 +239,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="epochs between crash-resume state files "
                              "(0 = off)")
     parser.add_argument("--resume", type=str,
-                        help="a tpusr_torch state file to resume from")
+                        help="orbax state checkpoint to resume from "
+                             "(tpusr's or the port's)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--hr_patch_size", type=int, default=192)
     parser.add_argument("--batch_size", type=int, default=8)

@@ -18,11 +18,13 @@ The discriminator's ``convblocks.{i}.conv1`` / ``.bn1`` are the port's
 (1024, C*H*W) in C, H, W order and its columns are permuted to and from the
 port's NHWC flatten.
 
-The full training state (both nets, both Adam states, the step) is a
-``torch.save`` of tensors and plain data (``save_train_state``), for
---checkpoint_every, --resume and the ``{prefix}_state`` files. tpusr's
-orbax checkpoint directories need orbax and JAX, which the port does not
-use: they are refused (tpusr converts weights to a .pth).
+The full training state (both nets, both Adam states, the step) is an
+orbax checkpoint directory in tpusr's tree (``save_train_state``: its
+``GANTrainState`` as ``io.weights.export_flax_gan_state`` builds it,
+written by ``io.orbax.write_tree``), for --checkpoint_every, --resume and
+the ``{prefix}_state`` directories: tpusr's ``load_checkpoint`` restores
+it, and ``load_train_state`` reads tpusr's (OCDBT, zstd) as well as the
+port's own. The port's earlier ``torch.save`` state files still load.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ import re
 
 import torch
 
-from tpusr_torch.engine.gan import adam_moments, set_adam_moments
+from tpusr_torch.engine.gan import set_adam_moments
+from tpusr_torch.io.orbax import cast_like, read_tree, write_tree
+from tpusr_torch.io.weights import export_flax_gan_state, load_flax_gan_state
 from tpusr_torch.models.srgan import D_SCHEDULE, disc_feature_hw
 
 _CONV = ("weight", "bias")
@@ -180,37 +184,27 @@ def save_torch_pth(sd: dict, path: str) -> None:
     print(f"Model saved to {path}")
 
 
-def _refuse_orbax(path: str) -> None:
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (a tpusr orbax checkpoint?); tpusr_torch "
-            f"reads its own state files (torch.save) and generator / "
-            f"discriminator .pth files only, since orbax needs JAX")
-
-
 def save_train_state(path: str, state) -> None:
-    """The whole GANTrainState as one torch.save file: both nets' state
-    dicts, both Adam states as (count, m, v) and the step."""
-    def opt(o):
-        count, ms, vs = adam_moments(o)
-        return {"count": count, "m": [t.detach().cpu() for t in ms],
-                "v": [t.detach().cpu() for t in vs]}
-
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({"format": "tpusr_torch GANTrainState",
-                "G": {k: v.cpu() for k, v in state.G.state_dict().items()},
-                "D": {k: v.cpu() for k, v in state.D.state_dict().items()},
-                "opt_G": opt(state.opt_G), "opt_D": opt(state.opt_D),
-                "step": int(state.step)}, path)
+    """The whole GANTrainState as an orbax checkpoint directory in tpusr's
+    tree (both nets, their statistics, both Adam states, the step), which
+    tpusr's ``load_checkpoint`` restores with or without a target."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_tree(path, export_flax_gan_state(state))
     print(f"State saved to {path}")
 
 
 def load_train_state(path: str, state):
-    """Restore ``save_train_state``'s file into ``state`` (built for the
-    same configuration) in place and return it. Tensors are cast to the
-    target's dtypes, so a state written with f32 D moments or weights
-    resumes into bf16 storage and back. An orbax directory is refused."""
-    _refuse_orbax(path)
+    """Restore a training state into ``state`` (built for the same
+    configuration) in place and return it: an orbax checkpoint directory
+    written by tpusr or by ``save_train_state``, or a state file of the
+    port's earlier ``torch.save`` format. Leaves are cast to the target's
+    dtypes (tpusr/io/checkpoint.py:49-58), so a state written with f32 D
+    moments or weights resumes into bf16 storage and back. A directory
+    that is not an orbax checkpoint, or whose tree does not fit, raises."""
+    if os.path.isdir(path):
+        tree = cast_like(read_tree(path), export_flax_gan_state(state))
+        load_flax_gan_state(state, tree)
+        return state
     saved = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(saved, dict)
             and saved.get("format") == "tpusr_torch GANTrainState"):

@@ -10,6 +10,9 @@ where the hash covers the source text and the flags, as
 C calls run without the GIL (ctypes releases it), so a thread pool
 parallelises dataset prep.
 
+``build_library`` is that build for any source of this directory
+(``zstd.py`` builds the port's zstd decoder with it).
+
 ``available()`` gates its use: without g++ or libpng, or with
 ``TPUSR_NATIVE_LOADER=off``, ``data/div2k.py`` keeps the PIL path, whose
 bytes are identical (tests/test_torch_native_loader.py). ``status()``
@@ -37,23 +40,25 @@ _status: str | None = None
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
-def _lib_path() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS + LIBS).encode())
-    return os.path.join(BUILD_DIR, f"loader-{digest.hexdigest()[:16]}.so")
+def library_path(src: str, stem: str, flags=FLAGS, libs=()) -> str:
+    """``_build/<stem>-<hash>.so``, the hash over the source and flags."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(
+            tuple(flags) + tuple(libs)).encode())
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def _build() -> str:
-    """The library's path, compiled unless it exists; raises with g++'s
-    message when the build fails."""
-    out = _lib_path()
+def build_library(src: str, stem: str, flags=FLAGS, libs=()) -> str:
+    """``src`` compiled by g++ at ``library_path``, unless it is there;
+    raises with g++'s message when the build fails."""
+    out = library_path(src, stem, flags, libs)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(["g++", *FLAGS, "-o", tmp, _SRC, *LIBS],
+        proc = subprocess.run(["g++", *flags, "-o", tmp, src, *libs],
                               capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             lines = proc.stderr.strip().splitlines() or ["g++ failed"]
@@ -64,6 +69,14 @@ def _build() -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def _lib_path() -> str:
+    return library_path(_SRC, "loader", FLAGS, LIBS)
+
+
+def _build() -> str:
+    return build_library(_SRC, "loader", FLAGS, LIBS)
 
 
 def _load():
