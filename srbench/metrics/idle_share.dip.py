@@ -1,0 +1,7 @@
+"""Share of the profiled window in which no operation ran on the card, in
+%."""
+
+
+def read(ctx):
+    tw = ctx["trace"]
+    return 100.0 * (1.0 - tw.busy_s / tw.window_s)
