@@ -3,11 +3,12 @@
 A tiny DIV2K train tree (four 256^2 HR images and their x8 LRs); the
 tiny-model flags (--residual_blocks 2 --hr_patch_size 64 --batch_size 2);
 ``--device cpu``. Checked: tpusr's output file set and log keys with finite
-losses, on both trainers; --resume restoring the step; a
---pre_trained_models_path pair that tpusr's exporters wrote; the parser's
-flags and defaults against tpusr's.
+losses, on both trainers, and the engine's spans in --profile_dir's trace;
+--resume restoring the step; a --pre_trained_models_path pair that tpusr's
+exporters wrote; the parser's flags and defaults against tpusr's.
 """
 
+import json
 import os
 
 import jax
@@ -80,7 +81,17 @@ def _log(out_dir):
 
 @pytest.mark.parametrize("host_loop", ["False", "True"])
 def test_cli_writes_tpusr_file_set(tree, tmp_path, host_loop):
-    out_dir = _run(tree, tmp_path / "out", "--host_loop", host_loop)
+    out_dir = _run(tree, tmp_path / "out", "--host_loop", host_loop,
+                   "--profile_dir", str(tmp_path / "prof"))
+    # the run's trace holds the engine's spans
+    (trace,) = os.listdir(tmp_path / "prof")
+    with open(tmp_path / "prof" / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    spans = {"gan.g_forward", "gan.d_update", "gan.d_optimizer",
+             "gan.g_update"}
+    if host_loop == "False":
+        spans |= {"gan.call", "gan.crop", "gan.step", "gan.metrics"}
+    assert spans <= names
     assert out_dir.startswith(str(tmp_path / "out" / "trained" / "GANx8"))
     files = set(os.listdir(out_dir))
     for prefix in ("pre_trained", "fine_tuned"):

@@ -21,7 +21,8 @@ format); --pre_trained_models_path a run directory holding
 ``pre_trained_state`` (tpusr's or the port's) or the
 ``pre_trained_srgan_G.pth`` / ``_D.pth`` pair (both packages write the
 pair). tpusr's train CLI resumes the port's directories the same way.
---profile_dir is accepted and unused, as in tpusr.
+--profile_dir writes a torch.profiler Chrome trace of the run, the
+engine's spans (``gan.step``, ``gan.d_update``, ...) among its events.
 
 --data_parallel True trains data-parallel over W ranks, one per card
 (``parallel/gan_dp.py``): each step's global batch of --batch_size (which
@@ -67,6 +68,7 @@ from tpusr_torch.models.srgan import N_SHUFFLES
 from tpusr_torch.models.vgg19 import try_load_vgg19
 from tpusr_torch.parallel.gan_dp import make_dp_forward, make_dp_train_step
 from tpusr_torch.parallel.mesh import make_mesh
+from tpusr_torch.utils.profiling import maybe_trace
 
 
 def train_phase(state, dataset, config: GANTrainConfig, num_epoch,
@@ -257,7 +259,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="storage dtype of the discriminator's leaves "
                              "of at least 2^20 elements (default bf16; "
                              "the update's math stays f32)")
-    parser.add_argument("--profile_dir", type=str)
+    parser.add_argument("--profile_dir", type=str,
+                        help="write a torch.profiler Chrome trace here")
     parser.add_argument("--data_parallel", type=str2bool, default=False,
                         help="split each batch over one rank per card "
                              "(global BatchNorm statistics and gradients; "
@@ -286,7 +289,7 @@ def run(argv=None):
             sys.exit(1)
         if not join_ranks(run, argv, n_dev, args.device):
             return None  # the spawned ranks ran the training
-    with quiet_unless_rank0():
+    with quiet_unless_rank0(), maybe_trace(args.profile_dir):
         return _train(args)
 
 

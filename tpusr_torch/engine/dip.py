@@ -29,7 +29,9 @@ and utils/DIP.py). Semantics kept:
     (DIP.py:102) unless ``resolve_clean``; the L-BFGS path resolves clean.
 The JAX package runs the loop as one jitted scan; here it is a Python loop
 of PyTorch calls and kernel launches. The Adam path syncs nowhere inside
-it; L-BFGS 'zoom' reads each trial's value and slope back.
+it; L-BFGS 'zoom' reads each trial's value and slope back. A call, its
+net build, heads, iterations and resolve are spans (utils/profiling.py),
+each iteration's opened by the loop that runs it.
 
 The lane batch (``dip_superresolve_batch[_bucketed]``, tpusr's vmap) runs
 N images' independent nets as one batched computation: the lanes'
@@ -61,6 +63,7 @@ from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
 from tpusr_torch.models.skip import SkipNet, build_dip_net
 from tpusr_torch.ops.resample import Downsampler
+from tpusr_torch.utils.profiling import span
 
 WARMUP_ITERS, WARMUP_LR = 100, 1e-3  # utils/DIP.py:19-24
 
@@ -270,13 +273,17 @@ def _lbfgs_stage(config: DIPConfig, x, value_and_grad, dev, assign):
             return (p, torch.tensor(values, device=dev),
                     np.asarray(zoom.evals) - before)
 
+    done = 0  # L-BFGS iterations so far
+
     def run(n_iter):
-        nonlocal x
+        nonlocal x, done
         values = torch.full((n,), float("nan"), device=dev)
         n_evals = np.zeros(n, np.int64)
         for _ in range(n_iter):
-            x, values, k = lbfgs_iter(x)
-            n_evals += k
+            with span("dip.lbfgs_iteration", index=done):
+                x, values, k = lbfgs_iter(x)
+                n_evals += k
+            done += 1
         assign(x)
         return values, n_evals
 
@@ -294,101 +301,109 @@ def _check_optimizer(config: DIPConfig) -> None:
 
 def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
               lpips_fn: Callable | None, valid_hw=None):
-    _check_optimizer(config)
-    parts = _opt_parts(config)
-    _check_input(config)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    lr = _nchw(_image(lr_image, dev))
-    hr = _image(hr_image, dev)
-    _, h, w, _ = hr.shape
+    with span("dip.call", lanes=1):
+        _check_optimizer(config)
+        parts = _opt_parts(config)
+        _check_input(config)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        lr = _nchw(_image(lr_image, dev))
+        hr = _image(hr_image, dev)
+        _, h, w, _ = hr.shape
 
-    net, downsampler = build(config, generator)
-    net.to(dev, memory_format=torch.channels_last)
-    downsampler.to(dev)
-    dev_gen = torch.Generator(device=dev)
-    dev_gen.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
-                                          generator=generator)))
+        with span("dip.build"):
+            net, downsampler = build(config, generator)
+            net.to(dev, memory_format=torch.channels_last)
+            downsampler.to(dev)
+            dev_gen = torch.Generator(device=dev)
+            dev_gen.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
+                                                  generator=generator)))
 
-    def draw(fn):  # NHWC draw, viewed as channels_last NCHW
-        return _nchw(fn((1, h, w, config.input_depth), generator=dev_gen,
-                        device=dev))
+        def draw(fn):  # NHWC draw, viewed as channels_last NCHW
+            return _nchw(fn((1, h, w, config.input_depth),
+                            generator=dev_gen, device=dev))
 
-    if config.input_method == "noise":
-        z = draw(torch.rand) * config.input_noise_scale
-    else:
-        z = _nchw(meshgrid_input(h, w).to(dev).contiguous())
+        if config.input_method == "noise":
+            z = draw(torch.rand) * config.input_noise_scale
+        else:
+            z = _nchw(meshgrid_input(h, w).to(dev).contiguous())
 
-    leaves = list(net.parameters())
-    if "input" in parts:
-        z = z.detach().clone().requires_grad_()
-        leaves.append(z)
-    kernel = None
-    if "down" in parts:
-        kernel = downsampler.kernel.detach().clone().requires_grad_()
-        leaves.append(kernel)
+        leaves = list(net.parameters())
+        if "input" in parts:
+            z = z.detach().clone().requires_grad_()
+            leaves.append(z)
+        kernel = None
+        if "down" in parts:
+            kernel = downsampler.kernel.detach().clone().requires_grad_()
+            leaves.append(kernel)
 
-    lr_mask = None
-    if valid_hw is not None:
-        lr_valid = (valid_hw[0] // config.factor, valid_hw[1] // config.factor)
-        lr_mask = _valid_mask(lr.shape[2:4], lr_valid, dev)
-        lr_mask = lr_mask[..., 0][None, None]  # (1, 1, h, w)
+        lr_mask = None
+        if valid_hw is not None:
+            lr_valid = (valid_hw[0] // config.factor,
+                        valid_hw[1] // config.factor)
+            lr_mask = _valid_mask(lr.shape[2:4], lr_valid, dev)
+            lr_mask = lr_mask[..., 0][None, None]  # (1, 1, h, w)
 
-    def metrics_of():
-        with torch.no_grad():
-            return _head(net(z, update_stats=False).permute(0, 2, 3, 1), hr,
-                         valid_hw, lpips_fn)
+        def metrics_of():
+            with torch.no_grad():
+                return _head(net(z, update_stats=False).permute(0, 2, 3, 1),
+                             hr, valid_hw, lpips_fn)
 
-    n_chunks, chunk_len, remainder = _chunks(config)
-    std = config.reg_noise_std
-    noise = None
+        n_chunks, chunk_len, remainder = _chunks(config)
+        std = config.reg_noise_std
+        noise = None
+        done = 0  # Adam iterations so far, the warm-up's included
 
-    def adam_run(optimizer, n_iter):
-        nonlocal noise
-        loss = torch.full((), float("nan"), device=dev)
-        for _ in range(n_iter):
-            noise = draw(torch.randn) if std > 0 else None
-            loss = dip_iteration(net, downsampler, optimizer, z, noise, lr,
-                                 std, kernel, lr_mask)
-        return loss
+        def adam_run(optimizer, n_iter):
+            nonlocal noise, done
+            loss = torch.full((), float("nan"), device=dev)
+            for _ in range(n_iter):
+                with span("dip.iteration", index=done, optimizer=optimizer):
+                    noise = draw(torch.randn) if std > 0 else None
+                    loss = dip_iteration(net, downsampler, optimizer, z,
+                                         noise, lr, std, kernel, lr_mask)
+                done += 1
+            return loss
 
-    heads, losses, evals = [], [], []
-    if config.optimizer == "adam":
-        optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
+        heads, losses, evals = [], [], []
+        if config.optimizer == "adam":
+            optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
 
-        def run(n_iter):
-            evals.append(n_iter)
-            return adam_run(optimizer, n_iter)
-    else:
-        adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
-        noise = None  # the L-BFGS stage and its resolve are noise-free
-        x, value_and_grad = flat_objective(net, downsampler, leaves, z, lr,
-                                           kernel, lr_mask)
-        stage = _lbfgs_stage(config, x[None], one_lane(value_and_grad), dev,
-                             lambda xs: _assign(leaves, xs[0]))
+            def run(n_iter):
+                evals.append(n_iter)
+                return adam_run(optimizer, n_iter)
+        else:
+            adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
+            noise = None  # the L-BFGS stage and its resolve are noise-free
+            x, value_and_grad = flat_objective(net, downsampler, leaves, z,
+                                               lr, kernel, lr_mask)
+            stage = _lbfgs_stage(config, x[None], one_lane(value_and_grad),
+                                 dev, lambda xs: _assign(leaves, xs[0]))
 
-        def run(n_iter):
-            values, n_evals = stage(n_iter)
-            evals.append(int(n_evals[0]))
-            return values[0]
+            def run(n_iter):
+                values, n_evals = stage(n_iter)
+                evals.append(int(n_evals[0]))
+                return values[0]
 
-    for _ in range(n_chunks):
-        heads.append(metrics_of())  # chunk head == iteration % log_freq == 0
-        losses.append(run(chunk_len))
-    run(remainder)
-    rem = evals.pop()
-    evals[-1] += rem  # the remainder counts in the last chunk
+        for _ in range(n_chunks):
+            with span("dip.head"):  # chunk head: iteration % log_freq == 0
+                heads.append(metrics_of())
+            losses.append(run(chunk_len))
+        run(remainder)
+        rem = evals.pop()
+        evals[-1] += rem  # the remainder counts in the last chunk
 
-    z_final = z
-    if not config.resolve_clean and noise is not None:
-        z_final = z + noise * std
-    with torch.no_grad():
-        resolved = net(z_final, update_stats=False).permute(0, 2, 3, 1)
-    cols = [torch.stack(c).float().cpu().numpy() for c in zip(*heads)]
-    curves = {"psnr": cols[0], "ssim": cols[1], "lpips": cols[2],
-              "loss": torch.stack(losses).float().cpu().numpy(),
-              "evals": np.asarray(evals, np.int64)}
-    return resolved.contiguous(), curves
+        with span("dip.resolve"):
+            z_final = z
+            if not config.resolve_clean and noise is not None:
+                z_final = z + noise * std
+            with torch.no_grad():
+                resolved = net(z_final, update_stats=False).permute(0, 2, 3, 1)
+            cols = [torch.stack(c).float().cpu().numpy() for c in zip(*heads)]
+            curves = {"psnr": cols[0], "ssim": cols[1], "lpips": cols[2],
+                      "loss": torch.stack(losses).float().cpu().numpy(),
+                      "evals": np.asarray(evals, np.int64)}
+        return resolved.contiguous(), curves
 
 
 def dip_superresolve(lr_image, hr_image, config: DIPConfig,
@@ -592,119 +607,129 @@ def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
     host, each round one batched value-and-gradient call over the lanes
     still searching, so each lane takes its single run's trial points.
     """
-    from torch.func import vmap
+    with span("dip.call", lanes=len(generators)):
+        from torch.func import vmap
 
-    _check_optimizer(config)
-    parts = _opt_parts(config)
-    _check_input(config)
-    config = dataclasses.replace(config, conv_fusion="off")
-    n = len(generators)
-    if not (len(lr_images) == len(hr_images) == n):
-        raise ValueError("lr_images, hr_images and generators differ in "
-                         "length")
-    lr = torch.stack([_nchw(_image(a, dev)) for a in lr_images])
-    hr = torch.stack([_image(a, dev) for a in hr_images])  # (N, 1, H, W, 3)
-    _, _, h, w, _ = hr.shape
+        _check_optimizer(config)
+        parts = _opt_parts(config)
+        _check_input(config)
+        config = dataclasses.replace(config, conv_fusion="off")
+        n = len(generators)
+        if not (len(lr_images) == len(hr_images) == n):
+            raise ValueError("lr_images, hr_images and generators differ in "
+                             "length")
+        lr = torch.stack([_nchw(_image(a, dev)) for a in lr_images])
+        # (N, 1, H, W, 3)
+        hr = torch.stack([_image(a, dev) for a in hr_images])
+        _, _, h, w, _ = hr.shape
 
-    nets, dev_gens = [], []
-    for gen in generators:
-        net, downsampler = build(config, gen)
-        nets.append(net)
-        dg = torch.Generator(device=dev)
-        dg.manual_seed(int(torch.randint(0, 2 ** 62, (1,), generator=gen)))
-        dev_gens.append(dg)
-    template = nets[0].to(dev)
-    downsampler.to(dev)
+        with span("dip.build"):
+            nets, dev_gens = [], []
+            for gen in generators:
+                net, downsampler = build(config, gen)
+                nets.append(net)
+                dg = torch.Generator(device=dev)
+                dg.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
+                                                 generator=gen)))
+                dev_gens.append(dg)
+            template = nets[0].to(dev)
+            downsampler.to(dev)
+            params = stack_lanes(nets, dev)
 
-    def draw(fn):  # one NHWC draw per lane, stacked as (N, 1, C, H, W)
-        return torch.stack([_nchw(fn((1, h, w, config.input_depth),
-                                     generator=g, device=dev))
-                            for g in dev_gens])
+        def draw(fn):  # one NHWC draw per lane, stacked as (N, 1, C, H, W)
+            return torch.stack([_nchw(fn((1, h, w, config.input_depth),
+                                         generator=g, device=dev))
+                                for g in dev_gens])
 
-    if config.input_method == "noise":
-        z = draw(torch.rand) * config.input_noise_scale
-    else:
-        z = _nchw(meshgrid_input(h, w).to(dev))[None].expand(
-            n, -1, -1, -1, -1).contiguous()
-    params = stack_lanes(nets, dev)
-    if "input" in parts:
-        z = z.detach().clone().requires_grad_()
-    kernel = None
-    if "down" in parts:
-        kernel = downsampler.kernel.detach()[None].repeat(n, 1, 1)
-        kernel.requires_grad_()
-    leaves = lane_leaves(params, z, kernel)
+        if config.input_method == "noise":
+            z = draw(torch.rand) * config.input_noise_scale
+        else:
+            z = _nchw(meshgrid_input(h, w).to(dev))[None].expand(
+                n, -1, -1, -1, -1).contiguous()
+        if "input" in parts:
+            z = z.detach().clone().requires_grad_()
+        kernel = None
+        if "down" in parts:
+            kernel = downsampler.kernel.detach()[None].repeat(n, 1, 1)
+            kernel.requires_grad_()
+        leaves = lane_leaves(params, z, kernel)
 
-    lr_mask = None
-    if valid_hws is not None:
-        lr_mask = torch.stack([
-            _valid_mask(lr.shape[-2:], (int(v[0]) // config.factor,
-                                        int(v[1]) // config.factor),
-                        dev)[..., 0][None, None] for v in valid_hws])
-    batched_out = vmap(functools.partial(_lane_out, template))
+        lr_mask = None
+        if valid_hws is not None:
+            lr_mask = torch.stack([
+                _valid_mask(lr.shape[-2:], (int(v[0]) // config.factor,
+                                            int(v[1]) // config.factor),
+                            dev)[..., 0][None, None] for v in valid_hws])
+        batched_out = vmap(functools.partial(_lane_out, template))
 
-    def forward_nhwc(z_in):  # (N, 1, H, W, 3)
-        return batched_out(params, z_in).permute(0, 1, 3, 4, 2)
+        def forward_nhwc(z_in):  # (N, 1, H, W, 3)
+            return batched_out(params, z_in).permute(0, 1, 3, 4, 2)
 
-    def metrics_of():  # (N, 3)
-        with torch.no_grad():
-            out = forward_nhwc(z)
-            return torch.stack([torch.stack(_head(
-                out[i], hr[i], None if valid_hws is None else
-                (int(valid_hws[i][0]), int(valid_hws[i][1])), lpips_fn))
-                for i in range(n)])
+        def metrics_of():  # (N, 3)
+            with torch.no_grad():
+                out = forward_nhwc(z)
+                return torch.stack([torch.stack(_head(
+                    out[i], hr[i], None if valid_hws is None else
+                    (int(valid_hws[i][0]), int(valid_hws[i][1])), lpips_fn))
+                    for i in range(n)])
 
-    n_chunks, chunk_len, remainder = _chunks(config)
-    std = config.reg_noise_std
-    noise = None
+        n_chunks, chunk_len, remainder = _chunks(config)
+        std = config.reg_noise_std
+        noise = None
+        done = 0  # Adam iterations so far, the warm-up's included
 
-    def adam_run(optimizer, n_iter):
-        nonlocal noise
-        losses = torch.full((n,), float("nan"), device=dev)
-        for _ in range(n_iter):
-            noise = draw(torch.randn) if std > 0 else None
-            losses = lane_iteration(template, downsampler, params,
-                                    optimizer, z, noise, lr, std, kernel,
-                                    lr_mask)
-        return losses
+        def adam_run(optimizer, n_iter):
+            nonlocal noise, done
+            losses = torch.full((n,), float("nan"), device=dev)
+            for _ in range(n_iter):
+                with span("dip.iteration", index=done, optimizer=optimizer):
+                    noise = draw(torch.randn) if std > 0 else None
+                    losses = lane_iteration(template, downsampler, params,
+                                            optimizer, z, noise, lr, std,
+                                            kernel, lr_mask)
+                done += 1
+            return losses
 
-    heads, losses, evals = [], [], []
-    if config.optimizer == "adam":
-        optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
+        heads, losses, evals = [], [], []
+        if config.optimizer == "adam":
+            optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
 
-        def run(n_iter):
-            evals.append(np.full(n, n_iter, np.int64))
-            return adam_run(optimizer, n_iter)
-    else:
-        adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
-        noise = None  # the L-BFGS stage and its resolve are noise-free
-        x, value_and_grad = lane_objective(template, downsampler, params, z,
-                                           lr, kernel, lr_mask)
-        stage = _lbfgs_stage(config, x, value_and_grad, dev,
-                             functools.partial(_assign_lanes, leaves))
+            def run(n_iter):
+                evals.append(np.full(n, n_iter, np.int64))
+                return adam_run(optimizer, n_iter)
+        else:
+            adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
+            noise = None  # the L-BFGS stage and its resolve are noise-free
+            x, value_and_grad = lane_objective(template, downsampler, params,
+                                               z, lr, kernel, lr_mask)
+            stage = _lbfgs_stage(config, x, value_and_grad, dev,
+                                 functools.partial(_assign_lanes, leaves))
 
-        def run(n_iter):
-            values, n_evals = stage(n_iter)
-            evals.append(n_evals)
-            return values
+            def run(n_iter):
+                values, n_evals = stage(n_iter)
+                evals.append(n_evals)
+                return values
 
-    for _ in range(n_chunks):
-        heads.append(metrics_of())
-        losses.append(run(chunk_len))
-    run(remainder)
-    rem = evals.pop()
-    evals[-1] = evals[-1] + rem  # the remainder counts in the last chunk
+        for _ in range(n_chunks):
+            with span("dip.head"):
+                heads.append(metrics_of())
+            losses.append(run(chunk_len))
+        run(remainder)
+        rem = evals.pop()
+        evals[-1] = evals[-1] + rem  # the remainder counts in the last chunk
 
-    z_final = z
-    if not config.resolve_clean and noise is not None:
-        z_final = z + noise * std
-    with torch.no_grad():
-        resolved = forward_nhwc(z_final).contiguous()
-    m = torch.stack(heads, 1).float().cpu().numpy()  # (N, chunks, 3)
-    curves = {"psnr": m[..., 0], "ssim": m[..., 1], "lpips": m[..., 2],
-              "loss": torch.stack(losses, 1).float().cpu().numpy(),
-              "evals": np.stack(evals, 1)}
-    return resolved, curves
+        with span("dip.resolve"):
+            z_final = z
+            if not config.resolve_clean and noise is not None:
+                z_final = z + noise * std
+            with torch.no_grad():
+                resolved = forward_nhwc(z_final).contiguous()
+            m = torch.stack(heads, 1).float().cpu().numpy()  # (N, chunks, 3)
+            curves = {"psnr": m[..., 0], "ssim": m[..., 1],
+                      "lpips": m[..., 2],
+                      "loss": torch.stack(losses, 1).float().cpu().numpy(),
+                      "evals": np.stack(evals, 1)}
+        return resolved, curves
 
 
 def dip_superresolve_batch(lr_images, hr_images,

@@ -34,6 +34,7 @@ import torch
 
 from tpusr_torch.engine import losses as L
 from tpusr_torch.models.srgan import Discriminator, Generator
+from tpusr_torch.utils.profiling import span
 
 # Defaults seeded from the environment once, at import, as tpusr does
 # (gan.py:39-50); in-process callers use dataclasses.replace on the config.
@@ -113,10 +114,11 @@ def generator_forward(generator: Generator, lr_images: torch.Tensor,
     """
     _check_fusion(config)
     fuse = (config.g_fuse == "train") if train else (config.g_fuse != "off")
-    x = lr_images.permute(0, 3, 1, 2)  # NHWC memory = channels_last NCHW
-    y = generator(x, train, fuse=fuse and config.conv_fusion == "auto",
-                  update_stats=False)
-    return y.permute(0, 2, 3, 1)
+    with span("gan.generator_forward"):
+        x = lr_images.permute(0, 3, 1, 2)  # NHWC memory = channels_last NCHW
+        y = generator(x, train, fuse=fuse and config.conv_fusion == "auto",
+                      update_stats=False)
+        return y.permute(0, 2, 3, 1)
 
 
 # ----------------------------------------------------------------- training
@@ -253,7 +255,8 @@ def _g_forward(state: GANTrainState, lr_patches, config: GANTrainConfig):
     """The step's one train-mode G forward (NHWC in, NCHW out); it updates
     G's BN statistics and its graph is kept for the G update."""
     fuse = config.g_fuse == "train" and config.conv_fusion == "auto"
-    return state.G(lr_patches.permute(0, 3, 1, 2), True, fuse=fuse)
+    with span("gan.g_forward"):
+        return state.G(lr_patches.permute(0, 3, 1, 2), True, fuse=fuse)
 
 
 def _d_update(state: GANTrainState, fake, hr_patches,
@@ -262,21 +265,23 @@ def _d_update(state: GANTrainState, fake, hr_patches,
     (train_GAN.py:43-53). ``reduce_grads(params)``, when given, rewrites
     the gradients between the backward and the step (the data-parallel
     mean over ranks)."""
-    D = state.D
-    hr = hr_patches.permute(0, 3, 1, 2)
-    fake_d = fake.detach().to(hr.dtype)
-    state.opt_D.zero_grad(set_to_none=True)
-    if config.d_concat:
-        b = hr.shape[0]
-        logits = D(torch.cat([hr, fake_d]), True, 2)
-        loss_D = L.discriminator_loss(logits[:b], logits[b:])
-    else:
-        loss_D = L.discriminator_loss(D(hr, True), D(fake_d, True))
-    loss_D.backward()
-    if reduce_grads is not None:
-        reduce_grads(list(D.parameters()))
-    state.opt_D.step()
-    return loss_D.detach()
+    with span("gan.d_update"):
+        D = state.D
+        hr = hr_patches.permute(0, 3, 1, 2)
+        fake_d = fake.detach().to(hr.dtype)
+        state.opt_D.zero_grad(set_to_none=True)
+        if config.d_concat:
+            b = hr.shape[0]
+            logits = D(torch.cat([hr, fake_d]), True, 2)
+            loss_D = L.discriminator_loss(logits[:b], logits[b:])
+        else:
+            loss_D = L.discriminator_loss(D(hr, True), D(fake_d, True))
+        loss_D.backward()
+        if reduce_grads is not None:
+            reduce_grads(list(D.parameters()))
+        with span("gan.d_optimizer"):
+            state.opt_D.step()
+        return loss_D.detach()
 
 
 def _g_update(state: GANTrainState, fake, hr_patches,
@@ -285,19 +290,20 @@ def _g_update(state: GANTrainState, fake, hr_patches,
     """G's loss through the just-updated D (train mode, its BN update
     discarded), the gradient of G's leaves only, and G's Adam step
     (train_GAN.py:55-64); ``reduce_grads`` as in ``_d_update``."""
-    adv_input = fake.detach() if config.legacy_detach else fake
-    fake_logits = state.D(adv_input, True, update_stats=False)
-    loss_G = L.perceptual_loss(content_loss, fake.permute(0, 2, 3, 1),
-                               hr_patches, fake_logits,
-                               adv_weight=config.adv_weight)
-    params_G = list(state.G.parameters())
-    # none of loss_G's gradient lands on D
-    for p, g in zip(params_G, torch.autograd.grad(loss_G, params_G)):
-        p.grad = g
-    if reduce_grads is not None:
-        reduce_grads(params_G)
-    state.opt_G.step()
-    return loss_G.detach()
+    with span("gan.g_update"):
+        adv_input = fake.detach() if config.legacy_detach else fake
+        fake_logits = state.D(adv_input, True, update_stats=False)
+        loss_G = L.perceptual_loss(content_loss, fake.permute(0, 2, 3, 1),
+                                   hr_patches, fake_logits,
+                                   adv_weight=config.adv_weight)
+        params_G = list(state.G.parameters())
+        # none of loss_G's gradient lands on D
+        for p, g in zip(params_G, torch.autograd.grad(loss_G, params_G)):
+            p.grad = g
+        if reduce_grads is not None:
+            reduce_grads(params_G)
+        state.opt_G.step()
+        return loss_G.detach()
 
 
 def gan_train_step(state: GANTrainState, lr_patches: torch.Tensor,

@@ -17,7 +17,9 @@ forward that ``parallel/gan_dp.py`` builds for a mesh: every rank draws
 the crops of the whole global batch from the shared generator and hands
 them to that step, which trains on the rank's slice, so the ranks see the
 patches one device would; the metrics forward uses the global batch
-statistics too and scores the gathered global batch.
+statistics too and scores the gathered global batch. The call, each
+step's crop and step and epoch 0's metrics are spans (utils/profiling.py)
+opened by the loop, around whatever ``step_fn`` runs.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from tpusr_torch.engine.gan import (GANTrainConfig, GANTrainState,
                                     gan_train_step, generator_forward)
 from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
+from tpusr_torch.utils.profiling import span
 
 
 def draw_offsets(valid_lr: torch.Tensor, lr_patch: int,
@@ -111,26 +114,31 @@ def gan_train_epochs(state: GANTrainState, lr_images_u8: torch.Tensor,
     f = config.factor
     lr_patch = config.hr_patch // f
     losses_d, losses_g, metrics = [], [], []
-    for epoch in range(n_epochs):
-        for s in range(steps):
-            sl = slice(s * b, (s + 1) * b)
-            lr_p, hr_p = _crop_pair(lr_images_u8[sl], hr_images_u8[sl],
-                                    valid_lr[sl], generator, lr_patch, f,
-                                    config.legacy_scale)
-            state, losses = step_fn(state, lr_p, hr_p)
-            losses_d.append(losses["loss_D"])
-            losses_g.append(losses["loss_G"])
-            if epoch == 0:
-                with torch.no_grad():
-                    out = forward_fn(state, lr_p)
-                    metrics.append(torch.stack([
-                        psnr_fn(out, hr_p), ssim_fn(out, hr_p, data_range=1.0),
-                        lpips_fn(out, hr_p) if lpips_fn is not None
-                        else torch.tensor(float("nan"), device=out.device)]))
-    m = torch.stack(metrics).mean(0)
-    logs = {"losses_D": torch.stack(losses_d).view(n_epochs, steps),
-            "losses_G": torch.stack(losses_g).view(n_epochs, steps),
-            "psnr": m[0], "ssim": m[1], "lpips": m[2]}
+    with span("gan.call", epochs=n_epochs, steps=steps):
+        for epoch in range(n_epochs):
+            for s in range(steps):
+                sl = slice(s * b, (s + 1) * b)
+                with span("gan.crop"):
+                    lr_p, hr_p = _crop_pair(
+                        lr_images_u8[sl], hr_images_u8[sl], valid_lr[sl],
+                        generator, lr_patch, f, config.legacy_scale)
+                with span("gan.step", state=state):
+                    state, losses = step_fn(state, lr_p, hr_p)
+                losses_d.append(losses["loss_D"])
+                losses_g.append(losses["loss_G"])
+                if epoch == 0:
+                    with span("gan.metrics"), torch.no_grad():
+                        out = forward_fn(state, lr_p)
+                        metrics.append(torch.stack([
+                            psnr_fn(out, hr_p),
+                            ssim_fn(out, hr_p, data_range=1.0),
+                            lpips_fn(out, hr_p) if lpips_fn is not None
+                            else torch.tensor(float("nan"),
+                                              device=out.device)]))
+        m = torch.stack(metrics).mean(0)
+        logs = {"losses_D": torch.stack(losses_d).view(n_epochs, steps),
+                "losses_G": torch.stack(losses_g).view(n_epochs, steps),
+                "psnr": m[0], "ssim": m[1], "lpips": m[2]}
     return state, logs
 
 
