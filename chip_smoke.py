@@ -1723,8 +1723,9 @@ class EngineSpy:
     """Records, around one CLI run, what the engine hands back and what it
     trains: the curves of every dip_superresolve* call the CLI makes (for
     their gradient-evaluation counts) and the first and last z and kernel
-    that dip_iteration trains (opt_over input/down). Restores the engine's
-    functions on exit."""
+    that each iteration's forward and backward (dip_forward_backward, which
+    a CUDA graph captures once) trains (opt_over input/down). Restores the
+    engine's functions on exit."""
 
     NAMES = ("dip_superresolve", "dip_superresolve_bucketed",
              "dip_superresolve_scan_bucketed")
@@ -1734,20 +1735,20 @@ class EngineSpy:
 
     def __enter__(self):
         self.saved = {n: getattr(self.cli, n) for n in self.NAMES}
-        self.saved_iter = self.dip.dip_iteration
+        self.saved_iter = self.dip.dip_forward_backward
         for n, fn in self.saved.items():
             setattr(self.cli, n, self._wrap(fn))
         spy = self
 
-        def iteration(net, down, opt, z, noise, lr, std, kernel=None,
+        def iteration(net, down, z, noise, lr, std, kernel=None,
                       lr_mask=None):
             for name, t in (("z", z), ("kernel", kernel)):
                 if t is not None and t.requires_grad:
                     spy.leaves.setdefault(name, [t.detach().clone(), t])
-            return spy.saved_iter(net, down, opt, z, noise, lr, std, kernel,
+            return spy.saved_iter(net, down, z, noise, lr, std, kernel,
                                   lr_mask)
 
-        self.dip.dip_iteration = iteration
+        self.dip.dip_forward_backward = iteration
         return self
 
     def _wrap(self, fn):
@@ -1760,7 +1761,7 @@ class EngineSpy:
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
             setattr(self.cli, n, fn)
-        self.dip.dip_iteration = self.saved_iter
+        self.dip.dip_forward_backward = self.saved_iter
 
     def grad_evals(self, warmup):
         """Gradient evaluations of the run: the curves' 'evals' (each

@@ -4,7 +4,8 @@ An off span is the shared no-op and calls no observer; on, spans nest,
 share their call's id and close on an exception. A DIP call, a lane batch
 and a training call give their spans in the order and nesting PERF.md
 lists, and an observer of ``dip.iteration`` reads what PyTorch's global
-optimizer-step hooks see (the benchmark's ``Recorder``). Under
+optimizer-step hooks see (the benchmark's ``Recorder``); on the CPU every
+iteration runs eagerly (``graph="eager"``). Under
 ``maybe_trace`` the Chrome trace holds the spans. The benchmark's span
 readers (``srbench/metrics``) on synthetic records.
 """
@@ -158,6 +159,13 @@ def test_a_dip_call_gives_its_spans_and_the_recorders_readings(kept, lanes):
         assert all(torch.equal(a, b) for a, b in zip(got[key], want[key]))
 
 
+def test_every_iteration_on_the_cpu_runs_eagerly(kept):
+    lr, hr = _dip_inputs(1)
+    dip.dip_superresolve(lr[0], hr[0], TINY_DIP, None, "cpu")
+    iters = [r for r in kept if r.name == "dip.iteration"]
+    assert [r.fields["graph"] for r in iters] == ["eager"] * 3
+
+
 def test_lbfgs_iterations_are_spans(kept, monkeypatch):
     monkeypatch.setattr(dip, "WARMUP_ITERS", 2)
     lr, hr = _dip_inputs(1)
@@ -288,3 +296,18 @@ def test_the_step_and_image_readers_skip_setup_and_profiled_units(records):
         records += [_unit(name, 4, 4, 80, 83), _unit(name, 5, 5, 83, 88),
                     _unit("gan.crop", 6, 6, 88, 99)]
         assert read({}) == pytest.approx(4.0), metric
+
+
+def test_the_graph_share_reader(records):
+    read = _reader("graph_share.dip")
+    assert read({}) is None  # nothing recorded
+    records += _dip_call(1, 0, [(1, 2), (2, 3)], profiled=True)
+    records += _dip_call(10, 10, [(11, 12), (12, 13)])
+    assert read({}) == 0.0  # no span has the field: every iteration eager
+    records.clear()
+    records += _dip_call(1, 0, [(1, 2)], profiled=True)
+    modes = ["eager"] * 2 + ["capture"] + ["replay"] * 197
+    records += [_unit("dip.iteration", 100 + i, 10, 10 + i, 11 + i, parent=10,
+                      index=i, graph=m) for i, m in enumerate(modes)]
+    records.append(_unit("dip.call", 10, 10, 10, 212, lanes=1))
+    assert read({}) == pytest.approx(99.0)

@@ -28,10 +28,12 @@ and utils/DIP.py). Semantics kept:
   * the final image is net(z') with the LAST noisy draw of the Adam path
     (DIP.py:102) unless ``resolve_clean``; the L-BFGS path resolves clean.
 The JAX package runs the loop as one jitted scan; here it is a Python loop
-of PyTorch calls and kernel launches. The Adam path syncs nowhere inside
-it; L-BFGS 'zoom' reads each trial's value and slope back. A call, its
-net build, heads, iterations and resolve are spans (utils/profiling.py),
-each iteration's opened by the loop that runs it.
+of PyTorch calls and kernel launches. On a card, each Adam stage replays
+its iterations' forward and backward as one CUDA graph after two eager
+iterations, with Adam eager after each (``_AdamStage``). The Adam path
+syncs nowhere inside it; L-BFGS 'zoom' reads each trial's value and slope
+back. A call, its net build, heads, iterations and resolve are spans
+(utils/profiling.py), each iteration's opened by the loop that runs it.
 
 The lane batch (``dip_superresolve_batch[_bucketed]``, tpusr's vmap) runs
 N images' independent nets as one batched computation: the lanes'
@@ -62,10 +64,12 @@ from tpusr_torch.engine.metrics import _valid_mask, psnr_masked, ssim_masked
 from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
 from tpusr_torch.models.skip import SkipNet, build_dip_net
+from tpusr_torch.ops import fused_conv
 from tpusr_torch.ops.resample import Downsampler
 from tpusr_torch.utils.profiling import span
 
 WARMUP_ITERS, WARMUP_LR = 100, 1e-3  # utils/DIP.py:19-24
+EAGER_ITERS = 2  # eager Adam iterations of a stage before its CUDA graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +159,17 @@ def dip_loss(net, downsampler, z_iter, lr_image, kernel=None, lr_mask=None,
     return (err * lr_mask).sum() / count
 
 
+def dip_forward_backward(net, downsampler, z, noise, lr_image,
+                         reg_noise_std: float, kernel=None,
+                         lr_mask=None) -> torch.Tensor:
+    """The loss at z + noise * reg_noise_std (z when noise is None) and its
+    backward into the leaves' ``.grad``; returns the detached loss."""
+    z_iter = z if noise is None else z + noise * reg_noise_std
+    loss = dip_loss(net, downsampler, z_iter, lr_image, kernel, lr_mask)
+    loss.backward()
+    return loss.detach()
+
+
 def dip_iteration(net, downsampler, optimizer, z, noise, lr_image,
                   reg_noise_std: float, kernel=None,
                   lr_mask=None) -> torch.Tensor:
@@ -165,12 +180,129 @@ def dip_iteration(net, downsampler, optimizer, z, noise, lr_image,
     parameters, and z and the kernel when they are trained). Returns the
     (detached) loss; no host sync.
     """
-    z_iter = z if noise is None else z + noise * reg_noise_std
-    loss = dip_loss(net, downsampler, z_iter, lr_image, kernel, lr_mask)
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    loss = dip_forward_backward(net, downsampler, z, noise, lr_image,
+                                reg_noise_std, kernel, lr_mask)
     optimizer.step()
-    return loss.detach()
+    return loss
+
+
+class _GraphHome:
+    """What every DIP graph on one card shares: the stream of the eager
+    iterations and the captures, so that the per-stream state they warm
+    (the workspace of each thread's cuBLAS handle, the allocator's cached
+    blocks) serves every call; and the last graph captured, kept for its
+    memory pool alone, which the next capture shares, so that it reuses
+    the blocks the last stage freed and the card's reserved memory does not
+    grow by a graph a call. Graphs in one pool must replay in the order
+    they were captured; a stage's graph never replays once it is closed."""
+
+    def __init__(self, dev: torch.device):
+        with torch.cuda.device(dev):
+            self.stream = torch.cuda.Stream()
+        self.last = None
+
+    def capture(self, fn):
+        """A new graph of ``fn()`` on the stream, in the last graph's pool,
+        after the caller's stream's work; returns (graph, fn's result)."""
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(
+                pool=None if self.last is None else self.last.pool())
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        self.last = graph
+        return graph, out
+
+
+_graph_home = functools.cache(_GraphHome)  # one per card
+
+
+class _AdamStage:
+    """The Adam iterations of one stage of a single-image call (the run,
+    or the L-BFGS path's warm-up). ``step()`` makes one iteration on the
+    noise already drawn and returns its loss; no host sync.
+
+    On a card, the forward and backward (``fwd_bwd``) of every iteration
+    after the first EAGER_ITERS run as one CUDA graph. The eager iterations
+    run them on the stream the capture uses, so that cuDNN's and cuBLAS's
+    handles and workspaces, AccumulateGrad and Adam's state exist before
+    it. The next iteration sets the gradients to None, so that the
+    backward allocates them in the graph's pool, captures the graph without
+    a host sync and replays it; every later iteration replays it, and
+    every replay rewrites the same gradients. The graph reads only tensors
+    that stay put for the stage: the net's leaves and buffers, z, the noise
+    buffer, the LR image, its mask and the trained kernel. Adam stays an
+    eager call on the caller's stream after each iteration, so PyTorch's
+    optimizer-step hooks fire as in an eager loop, and
+    ``fused_conv.LAUNCHES`` gains the launches the capture counted at
+    every later replay. Elsewhere every iteration is eager. ``close()``
+    drops the graph and frees the gradients in its pool, for the next
+    capture (``_GraphHome``).
+    """
+
+    def __init__(self, optimizer, fwd_bwd: Callable[[], torch.Tensor],
+                 dev: torch.device):
+        self.optimizer, self.fwd_bwd = optimizer, fwd_bwd
+        self.home = None
+        if dev.type == "cuda":  # one home per card, however it is named
+            self.home = _graph_home(torch.device(
+                "cuda", torch.cuda.current_device() if dev.index is None
+                else dev.index))
+        self.eager_left = EAGER_ITERS
+        self.graph = self.loss = None
+        self.launches: dict[str, int] = {}
+
+    @property
+    def mode(self) -> str:
+        """How the next iteration runs: 'eager', 'capture' or 'replay'."""
+        if self.home is None or self.eager_left > 0:
+            return "eager"
+        return "capture" if self.graph is None else "replay"
+
+    def step(self) -> torch.Tensor:
+        mode = self.mode
+        if mode == "eager":
+            self.optimizer.zero_grad(set_to_none=True)
+            if self.home is None:
+                loss = self.fwd_bwd()
+            else:
+                self.eager_left -= 1
+                loss = self._on_side_stream(self.fwd_bwd)
+        else:
+            if mode == "capture":
+                self._capture()
+            else:
+                for k, n in self.launches.items():
+                    fused_conv.LAUNCHES[k] += n
+            self.graph.replay()
+            loss = self.loss
+        self.optimizer.step()
+        return loss
+
+    def _on_side_stream(self, fn):
+        main, side = torch.cuda.current_stream(), self.home.stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = fn()
+        main.wait_stream(side)
+        return out
+
+    def _capture(self) -> None:
+        # not torch.cuda.graph, which synchronises and empties the cache
+        self.optimizer.zero_grad(set_to_none=True)
+        before = dict(fused_conv.LAUNCHES)
+        self.graph, self.loss = self.home.capture(self.fwd_bwd)
+        self.launches = {k: n - before[k]
+                         for k, n in fused_conv.LAUNCHES.items()}
+
+    def close(self) -> None:
+        if self.graph is not None:
+            self.optimizer.zero_grad(set_to_none=True)
+        self.graph = self.loss = None
 
 
 def _image(a, dev) -> torch.Tensor:
@@ -351,45 +483,61 @@ def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
 
         n_chunks, chunk_len, remainder = _chunks(config)
         std = config.reg_noise_std
+        # each iteration's reg noise is drawn into this buffer, which a
+        # graph can read (the same draws as torch.randn's)
+        noise_hwc = (torch.empty((1, h, w, config.input_depth), device=dev)
+                     if std > 0 else None)
         noise = None
         done = 0  # Adam iterations so far, the warm-up's included
 
-        def adam_run(optimizer, n_iter):
+        def fwd_bwd():
+            return dip_forward_backward(net, downsampler, z, noise, lr, std,
+                                        kernel, lr_mask)
+
+        adam = _AdamStage(torch.optim.Adam(
+            leaves, lr=config.learning_rate if config.optimizer == "adam"
+            else WARMUP_LR), fwd_bwd, dev)
+
+        def adam_run(n_iter):
             nonlocal noise, done
             loss = torch.full((), float("nan"), device=dev)
             for _ in range(n_iter):
-                with span("dip.iteration", index=done, optimizer=optimizer):
-                    noise = draw(torch.randn) if std > 0 else None
-                    loss = dip_iteration(net, downsampler, optimizer, z,
-                                         noise, lr, std, kernel, lr_mask)
+                with span("dip.iteration", index=done,
+                          optimizer=adam.optimizer, graph=adam.mode):
+                    if noise_hwc is not None:
+                        noise = _nchw(noise_hwc.normal_(generator=dev_gen))
+                    loss = adam.step()
                 done += 1
-            return loss
+            return loss.clone()  # a replay's loss is the graph's own tensor
 
         heads, losses, evals = [], [], []
-        if config.optimizer == "adam":
-            optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
+        try:
+            if config.optimizer == "adam":
+                def run(n_iter):
+                    evals.append(n_iter)
+                    return adam_run(n_iter)
+            else:
+                adam_run(WARMUP_ITERS)
+                adam.close()
+                noise = None  # the L-BFGS stage and its resolve are noise-free
+                x, value_and_grad = flat_objective(net, downsampler, leaves,
+                                                   z, lr, kernel, lr_mask)
+                stage = _lbfgs_stage(config, x[None],
+                                     one_lane(value_and_grad), dev,
+                                     lambda xs: _assign(leaves, xs[0]))
 
-            def run(n_iter):
-                evals.append(n_iter)
-                return adam_run(optimizer, n_iter)
-        else:
-            adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
-            noise = None  # the L-BFGS stage and its resolve are noise-free
-            x, value_and_grad = flat_objective(net, downsampler, leaves, z,
-                                               lr, kernel, lr_mask)
-            stage = _lbfgs_stage(config, x[None], one_lane(value_and_grad),
-                                 dev, lambda xs: _assign(leaves, xs[0]))
+                def run(n_iter):
+                    values, n_evals = stage(n_iter)
+                    evals.append(int(n_evals[0]))
+                    return values[0]
 
-            def run(n_iter):
-                values, n_evals = stage(n_iter)
-                evals.append(int(n_evals[0]))
-                return values[0]
-
-        for _ in range(n_chunks):
-            with span("dip.head"):  # chunk head: iteration % log_freq == 0
-                heads.append(metrics_of())
-            losses.append(run(chunk_len))
-        run(remainder)
+            for _ in range(n_chunks):
+                with span("dip.head"):  # chunk head: iteration % log_freq == 0
+                    heads.append(metrics_of())
+                losses.append(run(chunk_len))
+            run(remainder)
+        finally:
+            adam.close()
         rem = evals.pop()
         evals[-1] += rem  # the remainder counts in the last chunk
 
