@@ -6,6 +6,7 @@ Usage (flags mirror the JAX CLI, itself eval_GAN.py:122-134, plus
         --model_path G.pth [--save_images True] [--num_images -1] \
         [--noise_type gauss --noise_param 0.05] [--factor 8] \
         [--residual_blocks 16] [--dtype float32|bfloat16] [--device cuda]
+        [--generator srgan|rrdb]
 
 Loads a reference-named generator .pth or the ``params_G`` / ``stats_G``
 of an orbax state directory (tpusr's or the port's ``{prefix}_state`` or
@@ -23,6 +24,14 @@ neighbours (``sharded_generator_forward``); every rank ends with the
 whole image and rank 0 alone prints and writes the images and the log.
 Under torchrun the CLI joins the launched group (of N ranks); launched
 plainly it spawns N ranks, one per card (N processes on the CPU).
+
+--generator rrdb runs ESRGAN's RRDBNet instead (usually with --factor 4):
+a .pth in ESRGAN's or BasicSR / Real-ESRGAN's names (``params_ema`` /
+``params`` unwrapped), its block count read from the file, LR from
+``DIV2K_valid_LR_x{factor}/<name>x{factor}.png``. Its output in [0, 1]
+is mapped to [-1, 1] (2y - 1) for the metrics and the PNG, and clamped
+for the PNG only. --tiles and --spatial_shards are SRGAN's alone: their
+halo covers SRGAN's receptive field.
 """
 
 from __future__ import annotations
@@ -45,8 +54,9 @@ from tpusr_torch.engine.gan import (GANTrainConfig, build_generator,
                                     generator_forward)
 from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
-from tpusr_torch.io.checkpoint import (import_torch_generator,
-                                       infer_generator_arch,
+from tpusr_torch.io.checkpoint import (import_esrgan_rrdbnet,
+                                       import_torch_generator,
+                                       infer_generator_arch, infer_rrdb_arch,
                                        load_torch_state_dict)
 from tpusr_torch.io.images import save_image, to_uint8
 from tpusr_torch.io.logs import save_log
@@ -68,6 +78,8 @@ def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
     holds, with a warning; a pixel-shuffle count that does not fit
     config.factor raises with the factor the model was trained for.
     """
+    if config.generator == "rrdb":
+        return _load_rrdbnet(model_path, config, device)
     n_shuffles = N_SHUFFLES[config.factor]
     if model_path.endswith(".pth"):
         sd = load_torch_state_dict(model_path)
@@ -93,6 +105,21 @@ def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
             sd, residual_blocks_count=rb, n_shuffles=ns))
     else:
         load_flax_generator(generator, state["params_G"], state["stats_G"])
+    return generator, config
+
+
+def _load_rrdbnet(model_path: str, config: GANTrainConfig, device):
+    """A published RRDBNet .pth -> (RRDBNet on ``device``, config with
+    its block count); a x2-stage count that does not fit config.factor
+    raises."""
+    sd = load_torch_state_dict(model_path)
+    nb, n_up = infer_rrdb_arch(sd)
+    if 2 ** n_up != config.factor:
+        raise ValueError(f"{model_path} holds a x{2 ** n_up} RRDBNet but "
+                         f"--factor/--downsample request x{config.factor}")
+    config = dataclasses.replace(config, rrdb_blocks=nb)
+    generator = build_generator(config, device)
+    generator.load_state_dict(import_esrgan_rrdbnet(sd, nb, n_up))
     return generator, config
 
 
@@ -126,6 +153,8 @@ def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
             else:
                 resolved = generator_forward(generator, lr_dev, config,
                                              train=False)
+            if config.generator == "rrdb":  # [0, 1] -> the metrics' [-1, 1]
+                resolved = resolved * 2.0 - 1.0
             running["psnr"] += float(psnr_fn(resolved, hr_dev))
             running["ssim"] += float(ssim_fn(resolved, hr_dev,
                                              data_range=1.0))
@@ -157,10 +186,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--downsample", type=str2bool, default=False)
     parser.add_argument("--spatial_shards", type=int, default=1,
                         help="split each image into this many row slabs, "
-                             "one rank (card) each, with halo exchange")
+                             "one rank (card) each, with halo exchange "
+                             "(SRGAN only)")
     parser.add_argument("--tiles", type=int, default=1,
                         help="exact overlap-discard tiling of each image "
-                             "into this many row tiles, one batched forward")
+                             "into this many row tiles, one batched forward "
+                             "(SRGAN only)")
+    parser.add_argument("--generator", type=str, default="srgan",
+                        choices=("srgan", "rrdb"),
+                        help="srgan (default) or rrdb: ESRGAN's RRDBNet from "
+                             "a .pth in ESRGAN's or BasicSR's names, LR "
+                             "from DIV2K_valid_LR_x{factor}")
     parser.add_argument("--residual_blocks", type=int, default=16)
     parser.add_argument("--legacy_scale", type=str2bool, default=False,
                         help="reproduce the reference's double-/255 image "
@@ -179,7 +215,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.generator == "rrdb" and (args.tiles > 1
+                                     or args.spatial_shards > 1):
+        parser.error("--tiles and --spatial_shards take --generator srgan "
+                     "only: their halo covers SRGAN's receptive field")
     n = args.spatial_shards
     if n > 1:
         cuda = torch.device(args.device).type == "cuda"
@@ -203,12 +244,13 @@ def _evaluate_cli(args):
     require_dir(args.out_dir)
     check_num_images(args.num_images)
 
-    LR_dir = os.path.join(args.data_dir, "DIV2K_valid_LR_x8/")
-    HR_dir = os.path.join(args.data_dir, "DIV2K_valid_HR/")
-
     factor = args.factor
     if args.downsample:
         factor *= 2
+    # SRGAN reads the reference's x8 set whatever the factor
+    lr_tag = f"x{args.factor}" if args.generator == "rrdb" else "x8"
+    LR_dir = os.path.join(args.data_dir, f"DIV2K_valid_LR_{lr_tag}/")
+    HR_dir = os.path.join(args.data_dir, "DIV2K_valid_HR/")
 
     out_dir = os.path.join(args.out_dir, f"out/GANx{factor}/{timestamp()}")
     if main:
@@ -220,14 +262,14 @@ def _evaluate_cli(args):
     config = GANTrainConfig(factor=factor,
                             residual_blocks_count=args.residual_blocks,
                             dtype=None if args.dtype == "float32"
-                            else args.dtype)
+                            else args.dtype, generator=args.generator)
     generator, config = load_generator(args.model_path, config, args.device)
 
     dataset = GANDIV2KDataset(
         LR_dir=LR_dir, HR_dir=HR_dir, scale_factor=factor,
         num_images=args.num_images, noise_type=noise_type,
         downsample=args.downsample, train=False, seed=args.seed,
-        legacy_scale=args.legacy_scale)
+        legacy_scale=args.legacy_scale, lr_suffix=lr_tag)
 
     start_time = time.time()
     eval_metrics, n = evaluate(generator, dataset, out_dir, config,

@@ -4,7 +4,8 @@ Counterpart of ``tpusr/data/div2k.py`` (reference: dataset.py
 get_image_pair :9-62, DIV2KDataset :69-95, GANDIV2KDataset :98-177); the
 decode and resize chain runs natively (``tpusr_torch/native``) when the
 loader builds, else through PIL, with identical bytes:
-  * HR ``<name>.png`` pairs with LR ``<name>x8.png``;
+  * HR ``<name>.png`` pairs with LR ``<name>x8.png`` (``lr_suffix``: x8,
+    the reference's; ``x4`` for DIV2K's x4 LR set);
   * both images are bicubic-shrunk by 2, the LR once more with downsample;
   * HR is resized to exactly scale_factor x LR, or both shrink to the
     largest multiple when that would exceed the original HR in both dims;
@@ -32,6 +33,7 @@ class DatasetConfig:
     noise_type: dict | None = None
     num_images: int = -1
     seed: int = 0
+    lr_suffix: str = "x8"
 
 
 def _pil_shrink(img: Image.Image, factor: int = 2) -> Image.Image:
@@ -69,7 +71,7 @@ def get_image_pair(config: DatasetConfig, hr_name: str,
 
     filename, _ = os.path.splitext(hr_name)
     hr_path = os.path.join(config.HR_dir, hr_name)
-    lr_path = os.path.join(config.LR_dir, f"{filename}x8.png")
+    lr_path = os.path.join(config.LR_dir, f"{filename}{config.lr_suffix}.png")
     if native.available():
         lr_np, hr_np = native.load_pair(hr_path, lr_path,
                                         config.scale_factor,
@@ -118,11 +120,11 @@ class DIV2KDataset:
     """dataset.py:69-95 parity; iterable of (LR, HR, name) HWC floats."""
 
     def __init__(self, LR_dir, scale_factor, downsample=False, noise_type=None,
-                 num_images=-1, HR_dir=None, seed=0):
+                 num_images=-1, HR_dir=None, seed=0, lr_suffix="x8"):
         self.config = DatasetConfig(
             LR_dir=LR_dir, HR_dir=HR_dir, scale_factor=scale_factor,
             downsample=downsample, noise_type=noise_type,
-            num_images=num_images, seed=seed)
+            num_images=num_images, seed=seed, lr_suffix=lr_suffix)
         self.HR_images = sorted(os.listdir(HR_dir))
         if num_images > 0:
             self.HR_images = self.HR_images[:num_images]
@@ -144,9 +146,9 @@ class GANDIV2KDataset(DIV2KDataset):
 
     def __init__(self, LR_dir, scale_factor, downsample=False, noise_type=None,
                  num_images=-1, HR_dir=None, LR_patch_size=None, train=False,
-                 seed=0, legacy_scale=False):
+                 seed=0, legacy_scale=False, lr_suffix="x8"):
         super().__init__(LR_dir, scale_factor, downsample, noise_type,
-                         num_images, HR_dir, seed)
+                         num_images, HR_dir, seed, lr_suffix)
         self.LR_patch_size = LR_patch_size
         self.train = train
         self.legacy_scale = legacy_scale

@@ -1,5 +1,7 @@
 """SRGAN engine: the configuration, the alternating D/G training step and
-the generator's eval forward.
+the generator's eval forward, which also runs ESRGAN's RRDBNet
+(``generator='rrdb'``: eval only, no BatchNorm, input in [0, 1], raw
+unbounded output).
 
 Counterpart of ``tpusr/engine/gan.py`` (reference train_GAN.py:22-136,
 eval_GAN.py:21-69). ``GANTrainConfig`` carries every field and default of
@@ -33,6 +35,7 @@ from typing import Callable
 import torch
 
 from tpusr_torch.engine import losses as L
+from tpusr_torch.models.rrdb import RRDBNet
 from tpusr_torch.models.srgan import Discriminator, Generator
 from tpusr_torch.utils.profiling import span
 
@@ -70,6 +73,13 @@ class GANTrainConfig:
     conv_fusion: str = "auto"  # 'auto' | 'off'
     d_moments: str = _D_MOMENTS_DEFAULT  # 'bf16' | 'f32'
     d_params: str = _D_PARAMS_DEFAULT  # 'f32' | 'bf16'
+    # 'srgan' | 'rrdb': ESRGAN's RRDBNet at nf 64 / gc 32 (the widths kernel
+    # C takes and the published model has), rrdb_blocks RRDBs; eval only
+    generator: str = "srgan"
+    rrdb_blocks: int = 23
+
+
+GENERATORS = ("srgan", "rrdb")
 
 
 def torch_dtype(config: GANTrainConfig) -> torch.dtype | None:
@@ -87,17 +97,30 @@ def _check_fusion(config: GANTrainConfig) -> None:
                          f"auto/off")
 
 
+def _check_generator(config: GANTrainConfig) -> None:
+    if config.generator not in GENERATORS:
+        raise ValueError(f"generator {config.generator!r} not in "
+                         f"{'/'.join(GENERATORS)}")
+
+
 def build_generator(config: GANTrainConfig, device="cuda",
-                    generator: torch.Generator | None = None) -> Generator:
-    """The Generator ``config`` describes, on ``device``."""
+                    generator: torch.Generator | None = None
+                    ) -> Generator | RRDBNet:
+    """The generator ``config`` describes, on ``device``: SRGAN's
+    Generator, or ESRGAN's RRDBNet (×``factor``, ``rrdb_blocks`` RRDBs)."""
+    _check_generator(config)
+    if config.generator == "rrdb":
+        return RRDBNet(scale=config.factor, nb=config.rrdb_blocks,
+                       dtype=torch_dtype(config), fusion=config.conv_fusion,
+                       device=device, generator=generator)
     return Generator(factor=config.factor,
                      residual_blocks_count=config.residual_blocks_count,
                      dtype=torch_dtype(config), device=device,
                      generator=generator)
 
 
-def generator_forward(generator: Generator, lr_images: torch.Tensor,
-                      config: GANTrainConfig,
+def generator_forward(generator: Generator | RRDBNet,
+                      lr_images: torch.Tensor, config: GANTrainConfig,
                       train: bool = False) -> torch.Tensor:
     """Full-image generator inference (eval_GAN.py:44) over NHWC images.
 
@@ -111,8 +134,20 @@ def generator_forward(generator: Generator, lr_images: torch.Tensor,
     9x9 ones, and the 3x3 ones when unfused) follow PyTorch's setting,
     TF32 by default, as XLA's default precision rounds the reference's f32
     convs on the TPU (to bf16 there). Returns NHWC f32 in [-1, 1].
+
+    ``config.generator == 'rrdb'``: the RRDBNet's forward on NHWC in [0, 1]
+    (its fusion fixed when it was built), NHWC f32 out, raw as published
+    (ESRGAN clamps only to write an image); ``train=True`` raises.
     """
     _check_fusion(config)
+    _check_generator(config)
+    if config.generator == "rrdb":
+        if train:
+            raise ValueError("generator 'rrdb' runs eval only: no RRDB "
+                             "training")
+        with span("gan.generator_forward"):
+            return generator(lr_images.permute(0, 3, 1, 2)).permute(
+                0, 2, 3, 1)
     fuse = (config.g_fuse == "train") if train else (config.g_fuse != "off")
     with span("gan.generator_forward"):
         x = lr_images.permute(0, 3, 1, 2)  # NHWC memory = channels_last NCHW
@@ -237,6 +272,9 @@ def create_gan_state(config: GANTrainConfig, learning_rate: float,
     """Build the nets (or adopt G and D, as a new phase does) with fresh
     Adam optimizers and step 0 (train_GAN.py:35-36). New nets draw their
     init from ``generator``, G first."""
+    if config.generator != "srgan":
+        raise ValueError(f"generator {config.generator!r} has no training "
+                         f"state: only 'srgan' trains")
     if config.d_params == "bf16" and config.d_moments != "bf16":
         raise ValueError("d_params='bf16' requires d_moments='bf16' (f32 "
                          "update math)")

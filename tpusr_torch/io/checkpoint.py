@@ -18,6 +18,12 @@ The discriminator's ``convblocks.{i}.conv1`` / ``.bn1`` are the port's
 (1024, C*H*W) in C, H, W order and its columns are permuted to and from the
 port's NHWC flatten.
 
+ESRGAN's RRDBNet (``import_esrgan_rrdbnet``, eval only): a state dict in
+the names of ESRGAN's ``RRDBNet_arch.py`` or of BasicSR / Real-ESRGAN's
+``rrdbnet_arch.py`` maps onto the port's ``RRDBNet``, whose dense-block
+kernels are HWIO ``rrdb{i}.rdb{j}.conv{k}_kernel`` (the layout kernel C
+reads) and whose other convs keep OIHW.
+
 The full training state (both nets, both Adam states, the step) is an
 orbax checkpoint directory in tpusr's tree (``save_train_state``: its
 ``GANTrainState`` as ``io.weights.export_flax_gan_state`` builds it,
@@ -129,6 +135,102 @@ def export_torch_generator(state: dict, residual_blocks_count: int = 16,
         sd[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(
             0, dtype=torch.int64)
     return sd
+
+
+# the published RRDBNet's names per source, against the port's: dense-block
+# convs, the conv after the trunk, the x2 stages' convs, the HR conv
+_RRDB_NAMES = {
+    "esrgan": {"block": "RRDB_trunk.{i}.RDB{j}.conv{k}",
+               "trunk_conv": "trunk_conv", "upconv": "upconv{n}",
+               "conv_hr": "HRconv"},
+    "basicsr": {"block": "body.{i}.rdb{j}.conv{k}",
+                "trunk_conv": "conv_body", "upconv": "conv_up{n}",
+                "conv_hr": "conv_hr"},
+}
+
+
+def _unwrap_params(sd: dict) -> dict:
+    """BasicSR's .pth wraps the state dict in ``params_ema`` or
+    ``params``; Real-ESRGAN's inference prefers the former."""
+    for key in ("params_ema", "params"):
+        if key in sd and isinstance(sd[key], dict):
+            return sd[key]
+    return sd
+
+
+def _rrdb_source(sd: dict) -> str:
+    for source, names in _RRDB_NAMES.items():
+        if any(k.startswith(_trunk_prefix(names)) for k in sd):
+            return source
+    raise ValueError(f"not an RRDBNet state dict (no RRDB_trunk.* or "
+                     f"body.* among {sorted(sd)[:8]}...)")
+
+
+def _trunk_prefix(names: dict) -> str:
+    return names["block"].split(".")[0] + "."
+
+
+def infer_rrdb_arch(sd: dict) -> tuple[int, int]:
+    """(RRDB blocks, x2 stages) of an RRDBNet state dict in ESRGAN's or
+    BasicSR's names (``params_ema`` / ``params`` unwrapped); ValueError on
+    any other state dict."""
+    sd = _unwrap_params(sd)
+    names = _RRDB_NAMES[_rrdb_source(sd)]
+    trunk = _trunk_prefix(names)
+    up = re.escape(names["upconv"].removesuffix("{n}")) + r"\d+\.weight"
+    blocks = {int(k.split(".")[1]) for k in sd if k.startswith(trunk)}
+    return max(blocks) + 1, sum(bool(re.fullmatch(up, k)) for k in sd)
+
+
+def _rrdb_name_pairs(source: str, nb: int, n_up: int):
+    """(published name, port name, HWIO) of every RRDBNet tensor."""
+    names = _RRDB_NAMES[source]
+    pairs = []
+
+    def put(ref, port, hwio=False):
+        pairs.append((f"{ref}.weight",
+                      f"{port}_kernel" if hwio else f"{port}.weight", hwio))
+        pairs.append((f"{ref}.bias",
+                      f"{port}_bias" if hwio else f"{port}.bias", False))
+
+    put("conv_first", "conv_first")
+    for i in range(nb):
+        for j in range(1, 4):
+            for k in range(1, 6):
+                put(names["block"].format(i=i, j=j, k=k),
+                    f"rrdb{i}.rdb{j}.conv{k}", hwio=True)
+    put(names["trunk_conv"], "trunk_conv")
+    for n in range(1, n_up + 1):
+        put(names["upconv"].format(n=n), f"upconv{n}")
+    put(names["conv_hr"], "conv_hr")
+    put("conv_last", "conv_last")
+    return pairs
+
+
+def import_esrgan_rrdbnet(sd: dict, nb: int, n_up: int = 2) -> dict:
+    """A published RRDBNet state dict -> the port's ``RRDBNet`` state dict
+    (f32, on the tensors' own device), for ``load_state_dict``.
+
+    Takes ESRGAN's names (``conv_first``, ``RRDB_trunk.{i}.RDB{j}.
+    conv{k}``, ``trunk_conv``, ``upconv{n}``, ``HRconv``, ``conv_last``)
+    or BasicSR / Real-ESRGAN's (``body.{i}.rdb{j}.conv{k}``,
+    ``conv_body``, ``conv_up{n}``, ``conv_hr``, ``conv_last``), optionally
+    under a top-level ``params_ema`` / ``params``; ``nb`` RRDBs, ``n_up``
+    x2 stages (2: x4, as published). The dense-block kernels go from OIHW
+    to HWIO. A missing or an extra key raises KeyError naming it."""
+    sd = _unwrap_params(sd)
+    pairs = _rrdb_name_pairs(_rrdb_source(sd), nb, n_up)
+    missing = [ref for ref, _, _ in pairs if ref not in sd]
+    extra = sorted(set(sd) - {ref for ref, _, _ in pairs})
+    if missing or extra:
+        raise KeyError(f"RRDBNet state dict does not fit nb={nb}, "
+                       f"n_up={n_up}: missing {missing[:4]}, extra "
+                       f"{extra[:4]}")
+    out = {}
+    for ref, port, hwio in pairs:
+        t = torch.as_tensor(sd[ref]).to(torch.float32)
+        out[port] = t.permute(2, 3, 1, 0).contiguous() if hwio else t
+    return out
 
 
 def _disc_name_pairs():

@@ -21,6 +21,12 @@ zero padding); trunk_conv, the upconvs and conv_hr go through kernel A.
 On a CPU tensor both kernels run their plain versions. ``fusion='off'``
 is the unfused dataflow on ``F.conv2d``; ``'auto'`` defers to
 TPUSR_CONV_FUSION, read at import (``layers.fusion_mode``).
+
+Spans (``utils/profiling.span``; the shared no-op while spans are off):
+``rrdb.pack`` (on a card, where the units are packed; fields ``blocks``,
+the dense blocks packed, and ``bytes``, their units' size), ``rrdb.trunk``
+(``blocks``, the RRDBs) and ``rrdb.upsample`` (``octaves``, the x2
+stages), each inside the forward.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from tpusr_torch.models.layers import (Conv, _nchw, _nhwc, _uniform,
                                       activation, fusion_mode)
 from tpusr_torch.ops.dense_block import dense_block, packed_weights
 from tpusr_torch.ops.fused_conv import fused_conv3x3
+from tpusr_torch.utils.profiling import span
 
 
 def _conv3(x, kernel, fusion: str):
@@ -140,6 +147,10 @@ class RRDBNet(nn.Module):
         for i in range(nb):
             setattr(self, f"rrdb{i}", RRDB(nf, gc, dtype, fusion, generator))
         self.nb = nb
+        # elements of the packed units: every dense-block kernel once
+        self.pack_elems = sum(k.numel() for m in self.modules()
+                              if isinstance(m, DenseBlock)
+                              for k in m.kernels())
         self.trunk_conv = conv(nf, nf, True)
         for i in range(1, self.n_up + 1):
             setattr(self, f"upconv{i}", conv(nf, nf, True))
@@ -155,18 +166,23 @@ class RRDBNet(nn.Module):
         if x.is_cuda and self.nb and self.rrdb0.rdb1.kernel_c:
             # every block's units in one go: a stack, a cast and a permute
             # per conv, one cat
-            rdbs = [getattr(getattr(self, f"rrdb{i}"), f"rdb{j}")
-                    for i in range(self.nb) for j in range(1, 4)]
-            packed = packed_weights(
-                [torch.stack(ks) for ks in zip(*(r.kernels() for r in rdbs))],
-                fea.dtype).view(self.nb, 3, -1)
+            with span("rrdb.pack", blocks=3 * self.nb,
+                      bytes=self.pack_elems * fea.element_size()):
+                rdbs = [getattr(getattr(self, f"rrdb{i}"), f"rdb{j}")
+                        for i in range(self.nb) for j in range(1, 4)]
+                packed = packed_weights(
+                    [torch.stack(ks)
+                     for ks in zip(*(r.kernels() for r in rdbs))],
+                    fea.dtype).view(self.nb, 3, -1)
         trunk = fea
-        for i in range(self.nb):
-            trunk = getattr(self, f"rrdb{i}")(
-                trunk, None if packed is None else packed[i])
+        with span("rrdb.trunk", blocks=self.nb):
+            for i in range(self.nb):
+                trunk = getattr(self, f"rrdb{i}")(
+                    trunk, None if packed is None else packed[i])
         fea = fea + self.trunk_conv(trunk)
-        for i in range(1, self.n_up + 1):
-            fea = F.interpolate(fea, scale_factor=2, mode="nearest")
-            fea = _lrelu(getattr(self, f"upconv{i}")(fea))
+        with span("rrdb.upsample", octaves=self.n_up):
+            for i in range(1, self.n_up + 1):
+                fea = F.interpolate(fea, scale_factor=2, mode="nearest")
+                fea = _lrelu(getattr(self, f"upconv{i}")(fea))
         fea = _lrelu(self.conv_hr(fea))
         return self.conv_last(fea).float()

@@ -21,6 +21,9 @@ Port of ``tpusr/parallel/spatial.py``:
     single-pair exchange, the tiled path's geometry. When halo <= slab <
     2*halo it falls back to zero-filled edge halos (interior-exact only,
     warned); a halo above the slab is clamped to it (warned).
+
+Both take SRGAN's generator alone: ``generator_receptive_halo`` is SRGAN's,
+and a config with ``generator='rrdb'`` raises ValueError.
 """
 
 from __future__ import annotations
@@ -35,7 +38,12 @@ from tpusr_torch.parallel.mesh import all_gather, axis_of, exchange, make_mesh
 
 
 def generator_receptive_halo(config: GANTrainConfig) -> int:
-    """LR-domain halo covering the pre-upsample receptive field, padded."""
+    """LR-domain halo covering the SRGAN generator's pre-upsample receptive
+    field, padded; ValueError for any other generator."""
+    if config.generator != "srgan":
+        raise ValueError(f"spatial tiling and sharding take the SRGAN "
+                         f"generator only (its halo is SRGAN's), not "
+                         f"{config.generator!r}")
     return 2 * config.residual_blocks_count + 16
 
 
@@ -44,8 +52,9 @@ def tiled_generator_forward(generator, lr_image: torch.Tensor,
                             halo: int | None = None) -> torch.Tensor:
     """lr_image (1, H, W, 3) NHWC -> (1, H*f, W*f, 3), as the whole-image
     ``generator_forward(generator, lr_image, config)``."""
+    receptive = generator_receptive_halo(config)  # raises unless SRGAN
     if halo is None:
-        halo = generator_receptive_halo(config)
+        halo = receptive
     _, h, w, _ = lr_image.shape
     f = config.factor
     core = -(-h // n_tiles)
@@ -80,8 +89,9 @@ def sharded_generator_forward(generator, lr_image: torch.Tensor,
     on every rank. One shard is the whole-image forward; without a mesh,
     one is made over the group (``make_mesh({axis: n})``).
     """
+    receptive = generator_receptive_halo(config)  # raises unless SRGAN
     if halo is None:
-        halo = generator_receptive_halo(config)
+        halo = receptive
     if mesh is not None:
         n = axis_of(mesh, axis)[2]
     else:
@@ -100,7 +110,7 @@ def sharded_generator_forward(generator, lr_image: torch.Tensor,
         # receptive field the interior is no longer exact
         warnings.warn(
             f"spatial halo clamped from {halo} to slab height {slab} "
-            f"(< receptive halo {generator_receptive_halo(config)}): "
+            f"(< receptive halo {receptive}): "
             f"interior shard boundaries are now approximate. Use fewer "
             f"shards or tiled_generator_forward for exact output.",
             stacklevel=2)
