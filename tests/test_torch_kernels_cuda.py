@@ -8,6 +8,7 @@ run them without the JAX conftest (the port needs no JAX):
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tpusr_torch.ops import fused_conv as fc
 
@@ -28,6 +29,17 @@ def gen():
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max()
                  / (b.float().abs().max() + 1e-12))
+
+
+def _part_rel(y, yr, x):
+    """Kernel C's own part against its plain version: the largest rms of
+    y - yr over 16 x 16-pixel windows, over the rms of yr - x (0.2 c5) on
+    the whole output. x passes through y unchanged and sets y's largest
+    value, so _rel alone lets a weight unit left out or read from a stale
+    slot pass; this measure does not (PERF.md gives its readings)."""
+    d = (y.double() - yr.double()).square().mean(-1)[:, None]
+    worst = F.avg_pool2d(d, 16, 16, ceil_mode=True).sqrt().max()
+    return float(worst / (yr.double() - x.double()).square().mean().sqrt())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -186,12 +198,18 @@ def _dense_operands(gen, shape, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(1, 7, 9), (1, 13, 70), (2, 16, 20),
-                                   (1, 1, 1), (1, 40, 3)])
+                                   (1, 1, 1), (1, 40, 3), (1, 270, 480),
+                                   (3, 100, 150)])
 def test_dense_block_matches_plain_version(gen, dtype, tol, shape):
+    """Kernel C against its plain version, on the whole output and on its
+    own part (y - x), at the RRDB cell's own frame (1, 270, 480: 510 bf16
+    tiles, 3.9 waves of 132 blocks) and at N = 3 (210 bf16 tiles, not a
+    whole number of waves) among others; the bf16 launch counter moves on
+    bf16 alone."""
     from tpusr_torch.ops import dense_block as db
 
     x, ks, bs = _dense_operands(gen, shape, dtype)
-    before = db.LAUNCHES["dense_block"]
+    before = dict(db.LAUNCHES)
     y = db.dense_block(x, ks, bs)
     # the plain side: the same values, f32 ones in f64 (exact sums)
     f64 = dtype == torch.float32
@@ -201,7 +219,10 @@ def test_dense_block_matches_plain_version(gen, dtype, tol, shape):
     torch.cuda.synchronize()
     assert y.shape == x.shape and y.dtype == dtype
     assert _rel(y, yr) < tol
-    assert db.LAUNCHES["dense_block"] == before + 1
+    assert _part_rel(y, yr, x) < tol
+    assert db.LAUNCHES["dense_block"] == before["dense_block"] + 1
+    assert db.LAUNCHES["dense_block_bf16"] == (
+        before["dense_block_bf16"] + (dtype == torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -225,15 +246,62 @@ def test_dense_block_at_the_tile_edges(gen, dtype, tol, edge):
                                   [b.double() if f64 else b for b in bs])
     torch.cuda.synchronize()
     assert y.shape == x.shape and _rel(y, yr) < tol, (shape, _rel(y, yr))
+    assert _part_rel(y, yr, x) < tol, (shape, _part_rel(y, yr, x))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dense_block_is_deterministic(gen, dtype):
-    """Two launches on the same input give bit-identical outputs (no
-    atomics; each output is written by one thread)."""
+def _unit_range(dtype, unit):
+    """Elements of one packed weight unit of kernel C: in bf16 one per
+    stage, 16-channel chunk and kernel row (3 x 16 x the stage's outputs),
+    in f32 one per stage, chunk and 32 outputs (9 x 16 x 32)."""
+    from tpusr_torch.ops.dense_block import GC, KC, NF, UNIT_N
+
+    sizes = []
+    for s in range(5):
+        cin, cout = NF + GC * s, GC if s < 4 else NF
+        if dtype == torch.bfloat16:
+            sizes += [3 * KC * cout] * (cin // KC * 3)
+        else:
+            sizes += [9 * KC * UNIT_N] * (cin // KC * (cout // UNIT_N))
+    start = sum(sizes[:unit])
+    return start, start + sizes[unit]
+
+
+@pytest.mark.parametrize("dtype,unit,tol", [
+    (torch.bfloat16, 90, 2e-2),   # y's, x's channels 32-47, kernel row 0
+    (torch.bfloat16, 110, 2e-2),  # y's, c3's channels 0-15, kernel row 2
+    (torch.float32, 32, 1e-4),    # y's, x's channels 32-47, outputs 0-31
+    (torch.float32, 44, 1e-4)])   # y's, c3's channels 0-15, outputs 0-31
+def test_a_weight_unit_left_out_fails_the_comparison(gen, dtype, unit, tol):
+    """The comparison of kernel C with its plain version has the power to
+    see one of its weight units left out: zeroed in the packed units, one
+    unit that reads x and one that reads c3 each move the kernel's own
+    part past the limit, and at least twice it."""
     from tpusr_torch.ops import dense_block as db
 
     x, ks, bs = _dense_operands(gen, (2, 37, 45), dtype)
+    f64 = dtype == torch.float32
+    yr = db.dense_block_reference(x.double() if f64 else x,
+                                  [k.double() if f64 else k for k in ks],
+                                  [b.double() if f64 else b for b in bs])
+    wp = db.packed_weights(ks, dtype)
+    units = db.B16_NUNITS if dtype == torch.bfloat16 else db.NUNITS
+    assert _unit_range(dtype, units - 1)[1] == wp.numel()
+    a, b = _unit_range(dtype, unit)
+    wp[a:b] = 0
+    y = db.dense_block(x, ks, bs, wp)
+    torch.cuda.synchronize()
+    assert _part_rel(y, yr, x) > 2 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 45), (1, 270, 480)])
+def test_dense_block_is_deterministic(gen, dtype, shape):
+    """Two launches on the same input give bit-identical outputs (no
+    atomics; each output is written by one thread), at the RRDB cell's
+    frame too."""
+    from tpusr_torch.ops import dense_block as db
+
+    x, ks, bs = _dense_operands(gen, shape, dtype)
     a = db.dense_block(x, ks, bs)
     b = db.dense_block(x, ks, bs)
     torch.cuda.synchronize()

@@ -11,15 +11,25 @@ with zero-SAME halos and LeakyReLU slope 0.2, growth 32 on a 64-channel
 trunk. Kernel C (``tpusr_torch/csrc/dense_block.cu``, CUDA C++ for sm_90a)
 computes it in one launch on the tensor cores: x is read once, y written
 once, and c1..c4 stay in shared memory. Each block owns one output tile
-(``TILE``: 16 x 16 in bf16 on wgmma, 8 x 8 in f32 on 3xTF32 mma.sync) and
-computes each stage on its region, the tile grown by the remaining halo.
+(``TILE``: 16 x 16 in bf16, 8 x 8 in f32) and computes each stage on its
+region, the tile grown by the remaining halo. bf16 and f32 are two kernels:
 
-The kernel reads the weights as 52 packed units (``pack_weights``: per
-stage, per 16-channel chunk and per 32 outputs, 9 taps x 16 x 32 in the
-layout of the kernel's shared-memory slot), in the input's dtype. They are
-packed on every forward, as the JAX package does: ``packed_weights`` packs
-the blocks of a whole network in a few batched operations, and
-``models/rrdb.py`` hands each block its row.
+- bf16, warp-specialised on wgmma: a producer warp streams the weight units
+  into a ring of shared-memory slots by bulk async copies, each slot behind
+  a full and an empty mbarrier; two consumer warpgroups keep a wgmma group
+  in flight across units, c1..c4 as m64n32k16 and y as one m64n64k16, A
+  read straight from shared memory where 8 x 8 pixel blocks tile the stage's
+  region (c1, y) and through ldmatrix elsewhere.
+- f32, 3xTF32 on mma.sync, its weight ring filled by cp.async from every
+  thread behind block-wide barriers.
+
+The kernel reads the weights as packed units in the input's dtype, each in
+the layout of its shared-memory slot (``pack_weights``): in bf16 120 units,
+one per stage, 16-channel chunk and kernel row (3 taps x 16 x the stage's
+32 or 64 outputs); in f32 52, one per stage, chunk and 32 outputs (9 taps x
+16 x 32). They are packed on every forward, as the JAX package does:
+``packed_weights`` packs the blocks of a whole network in a few batched
+operations, and ``models/rrdb.py`` hands each block its row.
 
 Layout: NHWC ``(N, H, W, 64)`` activations for every N, H, W >= 1, and the
 five canonical HWIO kernels ``(3, 3, 64 + 32 (k - 1), 32 | 64)`` with f32
@@ -29,7 +39,8 @@ padding and its shape gates belong to the TPU and have no counterpart here.
 ``dense_block`` launches kernel C for a CUDA tensor (raising on what it does
 not take) and runs the plain version for a CPU tensor. Its backward
 recomputes through the plain version, as the JAX custom VJP does: the
-kernel has no backward of its own. ``LAUNCHES`` counts kernel launches.
+kernel has no backward of its own. ``LAUNCHES`` counts kernel launches:
+``dense_block`` every one, ``dense_block_bf16`` those of the bf16 kernel.
 """
 
 from __future__ import annotations
@@ -41,9 +52,11 @@ import torch.nn.functional as F
 
 NF, GC = 64, 32
 # the kernel's geometry (csrc/dense_block.cu): output tile (rows, columns)
-# per dtype, input channels per chunk, outputs per weight unit, units
+# per dtype, input channels per chunk; the f32 weight units' outputs and
+# count, and the bf16 units' count (one per stage, chunk and kernel row)
 TILE = {torch.bfloat16: (16, 16), torch.float32: (8, 8)}
 KC, UNIT_N, NUNITS = 16, 32, 52
+B16_NUNITS = 120
 # rows of a stage's M that the kernel pads to: wgmma's 64, mma.sync's 16
 M_PAD = {torch.bfloat16: 64, torch.float32: 16}
 USEFUL_MACS = 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64)
@@ -52,17 +65,22 @@ USEFUL_MACS = 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64)
 def recompute_factor(dtype) -> float:
     """Multiply-adds kernel C computes per output pixel over the 239,616
     a dense block needs: every stage on its region of the tile (the tile
-    grown by the remaining halo), M padded at its end."""
+    grown by the remaining halo), M padded at its end; in bf16 also the
+    padding tile of a stage with an odd number of M tiles, which the second
+    consumer warpgroup computes and drops."""
     th, tw = TILE[dtype]
     macs = 0
     for s in range(1, 6):
         npix = (th + 2 * (5 - s)) * (tw + 2 * (5 - s))
-        rows = -(-npix // M_PAD[dtype]) * M_PAD[dtype]
-        macs += rows * 9 * (NF + GC * (s - 1)) * (GC if s < 5 else NF)
+        tiles = -(-npix // M_PAD[dtype])
+        if dtype == torch.bfloat16:
+            tiles += tiles % 2
+        macs += tiles * M_PAD[dtype] * 9 * (NF + GC * (s - 1)) * (
+            GC if s < 5 else NF)
     return macs / (th * tw) / USEFUL_MACS
 
 
-LAUNCHES = {"dense_block": 0}
+LAUNCHES = {"dense_block": 0, "dense_block_bf16": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "dense_block.cu"
@@ -114,20 +132,24 @@ def dense_block_reference(x, kernels, biases):
 
 # ------------------------------------------------------------ weight units
 def pack_weights(kernels, dtype):
-    """The kernel's weight units, flat, in dtype: for each stage, each
-    16-channel chunk and each 32 outputs (stage 5 has two), the 9 x 16 x 32
-    slab laid out as the kernel's slot: bf16 [tap][k // 8][n // 8][k % 8]
-    [n % 8] (wgmma's N-major B, 8 x 8 core matrices), f32 [tap][k // 4][n]
-    [k % 4] (ldmatrix rows of mma.sync's B fragments)."""
+    """The kernel's weight units, flat, in dtype, each laid out as the
+    kernel's slot. bf16: for each stage, each 16-channel chunk and each
+    kernel row, the 3 x 16 x cout slab as [tap][k // 8][n // 8][k % 8]
+    [n % 8] (wgmma's N-major B, 8 x 8 core matrices). f32: for each stage,
+    each chunk and each 32 outputs (stage 5 has two), the 9 x 16 x 32 slab
+    as [tap][k // 4][n][k % 4] (ldmatrix rows of mma.sync's B fragments)."""
     units = []
     for k in kernels:
         cin, cout = k.shape[2], k.shape[3]
-        nch, nh = cin // KC, cout // UNIT_N
-        w = k.to(dtype).reshape(9, nch, KC, nh, UNIT_N).permute(1, 3, 0, 2, 4)
-        if dtype == torch.bfloat16:  # (c, h, t, kp, k8, nb, n8) -> kp, nb, k8
-            w = w.reshape(nch, nh, 9, 2, 8, 4, 8).permute(0, 1, 2, 3, 5, 4, 6)
+        nch = cin // KC
+        if dtype == torch.bfloat16:  # (dy, dx, c, kp, k8, nb, n8) -> c, dy, dx
+            w = k.to(dtype).reshape(3, 3, nch, 2, 8, cout // 8, 8)
+            w = w.permute(2, 0, 1, 3, 5, 4, 6)
         else:  # (c, h, t, kp, k4, n) -> kp, n, k4
-            w = w.reshape(nch, nh, 9, 4, 4, UNIT_N).permute(0, 1, 2, 3, 5, 4)
+            nh = cout // UNIT_N
+            w = k.to(dtype).reshape(9, nch, KC, nh, UNIT_N)
+            w = w.permute(1, 3, 0, 2, 4).reshape(nch, nh, 9, 4, 4, UNIT_N)
+            w = w.permute(0, 1, 2, 3, 5, 4)
         units.append(w.reshape(-1))
     return torch.cat(units)
 
@@ -143,14 +165,14 @@ def packed_weights(kernels, dtype):
         for k in kernels:
             lead = k.shape[:-4]
             cin, cout = k.shape[-2], k.shape[-1]
-            nch, nh = cin // KC, cout // UNIT_N
+            nch = cin // KC
             b = len(lead)
-            w = k.to(dtype).reshape(*lead, 9, nch, KC, nh, UNIT_N)
-            if dtype == torch.bfloat16:  # (t, c, kp, k8, h, nb, n8)
-                w = w.reshape(*lead, 9, nch, 2, 8, nh, 4, 8)
-                order = (1, 4, 0, 2, 5, 3, 6)
+            if dtype == torch.bfloat16:  # (dy, dx, c, kp, k8, nb, n8)
+                w = k.to(dtype).reshape(*lead, 3, 3, nch, 2, 8, cout // 8, 8)
+                order = (2, 0, 1, 3, 5, 4, 6)
             else:  # (t, c, kp, k4, h, n)
-                w = w.reshape(*lead, 9, nch, 4, 4, nh, UNIT_N)
+                w = k.to(dtype).reshape(*lead, 9, nch, 4, 4, cout // UNIT_N,
+                                        UNIT_N)
                 order = (1, 4, 0, 2, 5, 3)
             w = w.permute(*range(b), *(b + i for i in order))
             units.append(w.reshape(*lead, -1))
@@ -183,8 +205,10 @@ def _dense_block_cuda(x, kernels, biases, packed=None):
     wp = packed_weights(kernels, x.dtype) if packed is None else packed
     _check(wp.dtype == x.dtype and wp.numel() == sum(k.numel()
                                                      for k in kernels)
-           and wp.device == x.device and wp.is_contiguous(),
-           "packed units must be contiguous, in x's dtype, on x's device")
+           and wp.device == x.device and wp.is_contiguous()
+           and wp.data_ptr() % 16 == 0,
+           "packed units must be contiguous, 16-byte aligned, in x's dtype, "
+           "on x's device")
     bs = [b.to(torch.float32).contiguous() for b in biases]
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -195,6 +219,8 @@ def _dense_block_cuda(x, kernels, biases, packed=None):
     if rc != 0:
         raise RuntimeError(f"dense_block launch failed: CUDA error {rc}")
     LAUNCHES["dense_block"] += 1
+    if x.dtype == torch.bfloat16:
+        LAUNCHES["dense_block_bf16"] += 1
     return y
 
 
