@@ -4,6 +4,9 @@ One iteration from identical parameters, input z and reg noise (made with
 numpy, handed to both packages) must give the same loss, parameter
 gradients, BatchNorm running stats and Adam update as a JAX reconstruction
 of ``_dip_core``'s loss_fn plus ``optax.adam`` (tpusr/engine/dip.py:285-314).
+``dip_iteration`` shares its step with every eager iteration of the port's
+single-image call (``_eager_step``), so this also holds the iteration the
+engine runs on the CPU.
 """
 
 import functools

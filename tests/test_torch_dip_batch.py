@@ -60,17 +60,21 @@ def _close_runs(batch, singles):
         assert np.isnan(curves["lpips"][i]).all()
 
 
+@pytest.mark.parametrize("lanes", [1, LANES])
 @pytest.mark.parametrize("variant", [
     {}, {"opt_over": "net,input,down"},
     {"input_method": "meshgrid", "input_depth": 2}],
     ids=["noise", "opt_over-net-input-down", "meshgrid"])
-def test_lanes_equal_single_runs(variant):
+def test_lanes_equal_single_runs(variant, lanes):
+    """Also one lane: the batch a rank runs when N equals the world
+    size."""
     cfg = dataclasses.replace(TINY, **variant)
-    lr, hr = _inputs()
-    batch = dip.dip_superresolve_batch(lr, hr, _gens(), cfg, device="cpu")
-    assert batch[0].shape == (LANES, 1, 16, 16, 3)
+    lr, hr = _inputs(lanes)
+    batch = dip.dip_superresolve_batch(lr, hr, _gens(lanes), cfg,
+                                       device="cpu")
+    assert batch[0].shape == (lanes, 1, 16, 16, 3)
     singles = [dip.dip_superresolve(lr[i], hr[i], cfg, g, device="cpu")
-               for i, g in enumerate(_gens())]
+               for i, g in enumerate(_gens(lanes))]
     _close_runs(batch, singles)
 
 

@@ -63,8 +63,9 @@ def _rel(a, b):
 
 
 class Twin:
-    """What ``_dip_core`` builds from ``seed``: the net, the loss operator,
-    z and the device generator, for eager steps at any leaves."""
+    """What a single-image call (``_dip_core`` on a ``_SingleNet``) builds
+    from ``seed``: the net, the loss operator, z and the device generator,
+    for eager steps at any leaves."""
 
     def __init__(self, config, seed, lr, hw, dev):
         gen = torch.Generator().manual_seed(seed)
@@ -241,11 +242,11 @@ def _modes(fn):
                                      "profiled"])
 def test_every_single_image_entry_replays_its_graph(card, variant,
                                                     monkeypatch, tmp_path):
-    """The other routes into ``_dip_core``, each on its graph: trained z
-    and kernel (leaves the graph reads and Adam moves), a bucket's LR mask,
-    L-BFGS's Adam warm-up, and a call under ``maybe_trace`` (the CLI's
-    --profile_dir: the profiler records through the capture and sees the
-    kernels of the replays)."""
+    """The other single-image routes into ``_dip_core`` (a ``_SingleNet``),
+    each on its graph: trained z and kernel (leaves the graph reads and
+    Adam moves), a bucket's LR mask, L-BFGS's Adam warm-up, and a call
+    under ``maybe_trace`` (the CLI's --profile_dir: the profiler records
+    through the capture and sees the kernels of the replays)."""
     from tpusr_torch.utils.profiling import maybe_trace
 
     config = SMALL

@@ -407,7 +407,7 @@ def test_one_lbfgs_lane_iteration_matches_jax_vmap(search, tpusr_lbfgs_step):
         assert opt.calls == 1 + max(steps)
     assert steps == np.asarray(steps_j).tolist()
     np.testing.assert_allclose(losses.numpy(), np.asarray(loss_j), rtol=1e-5)
-    dip._assign_lanes(list(params.values()), x1)
+    dip._assign(list(params.values()), x1)
     moved = [0.0] * LANES
     apart = [0.0] * LANES
     for mod, leaves in new_j.items():

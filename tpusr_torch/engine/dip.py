@@ -27,24 +27,28 @@ and utils/DIP.py). Semantics kept:
     running-stat update is discarded;
   * the final image is net(z') with the LAST noisy draw of the Adam path
     (DIP.py:102) unless ``resolve_clean``; the L-BFGS path resolves clean.
-The JAX package runs the loop as one jitted scan; here it is a Python loop
-of PyTorch calls and kernel launches. On a card, each Adam stage replays
-its iterations' forward and backward as one CUDA graph after two eager
-iterations, with Adam eager after each (``_AdamStage``). The Adam path
-syncs nowhere inside it; L-BFGS 'zoom' reads each trial's value and slope
-back. A call, its net build, heads, iterations and resolve are spans
-(utils/profiling.py), each iteration's opened by the loop that runs it.
-
-The lane batch (``dip_superresolve_batch[_bucketed]``, tpusr's vmap) runs
-N images' independent nets as one batched computation: the lanes'
-parameters are stacked along a leading axis and ``torch.func.vmap`` runs
-``functional_call`` of one template net over them (per-lane convs become
-grouped convs), so one Adam over the stacked leaves is N per-lane Adams,
-and L-BFGS runs over the lanes' (N, n) stack of flat vectors
-(``lane_objective``; engine/lbfgs.py's lane steppers, the zoom line search
-one host-side state machine per lane driving one batched
-value-and-gradient call per round). As in tpusr, it forces
-``conv_fusion='off'``: no kernel runs there.
+The JAX package runs the loop as one jitted scan, and its batch as
+jax.vmap of that one core. Here one core, ``_dip_core``, runs the loop
+over N lanes as Python calls and kernel launches, N = 1 for a single
+image. What differs between one net and N lanes sits behind one seam:
+  * ``_SingleNet`` (one image): one net in channels_last. On a card each
+    Adam stage replays its iterations' forward and backward as one CUDA
+    graph after two eager iterations, with Adam eager after each
+    (``_AdamStage``).
+  * ``_LaneSet`` (``dip_superresolve_batch[_bucketed]``, tpusr's vmap):
+    the lanes' parameters stacked along a leading axis and
+    ``torch.func.vmap`` over ``functional_call`` of one template net
+    (per-lane convs become grouped convs); one Adam over the stacked leaves
+    is N per-lane Adams. As in tpusr it forces ``conv_fusion='off'``: no
+    kernel runs there.
+L-BFGS runs over the lanes' (N, n) stack of flat vectors
+(``flat_objective`` for one net, ``lane_objective`` for lanes) with
+engine/lbfgs.py's lane steppers; the zoom line search is one host-side
+state machine per lane, driving one batched value-and-gradient call per
+round. The Adam path syncs nowhere inside it; L-BFGS 'zoom' reads each
+trial's value and slope back. A call, its net build, heads, iterations and
+resolve are spans (utils/profiling.py), each iteration's opened by the
+loop that runs it.
 """
 
 from __future__ import annotations
@@ -100,15 +104,6 @@ class DIPConfig:
     conv_fusion: str = "auto"
 
 
-def _opt_parts(config: DIPConfig) -> set[str]:
-    """The parts of opt_over; unknown ones raise, as in the JAX package."""
-    parts = {p.strip() for p in config.opt_over.split(",")}
-    unknown = parts - {"net", "input", "down"}
-    if unknown:
-        raise ValueError(f"unknown opt_over parts {sorted(unknown)}")
-    return parts
-
-
 def build(config: DIPConfig, generator: torch.Generator | None = None
           ) -> tuple[SkipNet, Downsampler]:
     """The net (initialized from ``generator``) and the loss operator."""
@@ -148,7 +143,9 @@ def dip_loss(net, downsampler, z_iter, lr_image, kernel=None, lr_mask=None,
              update_stats: bool = True) -> torch.Tensor:
     """MSE between the downsampled net output and the LR image (NCHW),
     through ``conv2d_with(kernel)`` when a trained kernel is given, and over
-    the valid region of ``lr_mask`` (1, 1, h, w) when one is given."""
+    the valid region of ``lr_mask`` (1, 1, h, w) when one is given. ``net``
+    is called as net(z_iter, update_stats=...): a net, or one lane's
+    forward under vmap (``_lane_loss``)."""
     out = net(z_iter, update_stats=update_stats)
     out_lr = (downsampler(out) if kernel is None
               else downsampler.conv2d_with(out, kernel))
@@ -170,21 +167,29 @@ def dip_forward_backward(net, downsampler, z, noise, lr_image,
     return loss.detach()
 
 
+def _eager_step(optimizer, fwd_bwd: Callable[[], torch.Tensor]):
+    """One eager optimizer step: the gradients set to None, ``fwd_bwd()``
+    (which leaves them in ``.grad`` and returns the loss), the step."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = fwd_bwd()
+    optimizer.step()
+    return loss
+
+
 def dip_iteration(net, downsampler, optimizer, z, noise, lr_image,
                   reg_noise_std: float, kernel=None,
                   lr_mask=None) -> torch.Tensor:
-    """One DIP step with the reg-noise draw given explicitly.
+    """One DIP step with the reg-noise draw given explicitly: the step a
+    single-image call makes at every eager iteration.
 
     z, noise: (1, C, H, W); lr_image: (1, 3, h, w). ``noise=None`` skips
     the perturbation. The optimizer holds every trained leaf (the net's
     parameters, and z and the kernel when they are trained). Returns the
     (detached) loss; no host sync.
     """
-    optimizer.zero_grad(set_to_none=True)
-    loss = dip_forward_backward(net, downsampler, z, noise, lr_image,
-                                reg_noise_std, kernel, lr_mask)
-    optimizer.step()
-    return loss
+    return _eager_step(optimizer, functools.partial(
+        dip_forward_backward, net, downsampler, z, noise, lr_image,
+        reg_noise_std, kernel, lr_mask))
 
 
 class _GraphHome:
@@ -198,8 +203,7 @@ class _GraphHome:
     they were captured; a stage's graph never replays once it is closed."""
 
     def __init__(self, dev: torch.device):
-        with torch.cuda.device(dev):
-            self.stream = torch.cuda.Stream()
+        self.stream = torch.cuda.Stream(dev)
         self.last = None
 
     def capture(self, fn):
@@ -254,7 +258,6 @@ class _AdamStage:
                 else dev.index))
         self.eager_left = EAGER_ITERS
         self.graph = self.loss = None
-        self.launches: dict[str, int] = {}
 
     @property
     def mode(self) -> str:
@@ -266,28 +269,24 @@ class _AdamStage:
     def step(self) -> torch.Tensor:
         mode = self.mode
         if mode == "eager":
-            self.optimizer.zero_grad(set_to_none=True)
-            if self.home is None:
-                loss = self.fwd_bwd()
-            else:
-                self.eager_left -= 1
-                loss = self._on_side_stream(self.fwd_bwd)
+            if self.home is None:  # dip_iteration's step
+                return _eager_step(self.optimizer, self.fwd_bwd)
+            self.eager_left -= 1
+            return _eager_step(self.optimizer, self._on_side_stream)
+        if mode == "capture":
+            self._capture()
         else:
-            if mode == "capture":
-                self._capture()
-            else:
-                for k, n in self.launches.items():
-                    fused_conv.LAUNCHES[k] += n
-            self.graph.replay()
-            loss = self.loss
+            for k, n in self.launches.items():
+                fused_conv.LAUNCHES[k] += n
+        self.graph.replay()
         self.optimizer.step()
-        return loss
+        return self.loss
 
-    def _on_side_stream(self, fn):
+    def _on_side_stream(self):
         main, side = torch.cuda.current_stream(), self.home.stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = fn()
+            out = self.fwd_bwd()
         main.wait_stream(side)
         return out
 
@@ -324,11 +323,15 @@ def _flat(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def _assign(leaves, x: torch.Tensor) -> None:
-    """Write the flat vector x into the leaves, in their order."""
+    """Write flat vectors into the leaves, in their order: x (n,) or
+    (1, n) into one net's leaves, or the lanes' rows x (N, n) into stacked
+    leaves (``stack_lanes``, the lane axis first)."""
+    rows = x.numel() // x.shape[-1]
     offset = 0
     for p in leaves:
-        p.copy_(x[offset:offset + p.numel()].view(p.shape))
-        offset += p.numel()
+        size = p.numel() // rows
+        p.copy_(x[..., offset:offset + size].reshape(p.shape))
+        offset += size
 
 
 def flat_objective(net, downsampler, leaves, z, lr_image, kernel=None,
@@ -348,23 +351,6 @@ def flat_objective(net, downsampler, leaves, z, lr_image, kernel=None,
     return _flat([t.detach() for t in leaves]), value_and_grad
 
 
-def _check_input(config: DIPConfig) -> None:
-    if config.input_method not in ("noise", "meshgrid"):
-        raise ValueError(f"unknown input method {config.input_method!r}")
-    if config.input_method == "meshgrid" and config.input_depth != 2:
-        raise ValueError("meshgrid input requires input_depth=2")
-
-
-def _chunks(config: DIPConfig) -> tuple[int, int, int]:
-    """(chunks, iterations per chunk, remainder): one metrics head per
-    log_freq iterations (one head when num_iter < log_freq)."""
-    if config.num_iter >= config.log_freq:
-        n_chunks, chunk_len = config.num_iter // config.log_freq, config.log_freq
-    else:
-        n_chunks, chunk_len = 1, config.num_iter
-    return n_chunks, chunk_len, config.num_iter - n_chunks * chunk_len
-
-
 def _head(out, hr, valid_hw, lpips_fn: Callable | None) -> list:
     """One chunk head's [PSNR, SSIM, LPIPS] of an NHWC estimate (masked
     to valid_hw when given; LPIPS NaN without lpips_fn)."""
@@ -377,11 +363,11 @@ def _head(out, hr, valid_hw, lpips_fn: Callable | None) -> list:
     return m
 
 
-def _lbfgs_stage(config: DIPConfig, x, value_and_grad, dev, assign):
+def _lbfgs_stage(config: DIPConfig, x, value_and_grad, dev, leaves):
     """The L-BFGS stage after the warm-up, over N lanes' flat rows x (N, n)
     (one row for a single run): ``run(n_iter)`` makes n_iter iterations of
-    ``config.lbfgs_line_search``, writes the rows back through
-    ``assign(x)`` and returns (the N values at the last iteration's start,
+    ``config.lbfgs_line_search``, writes the rows back into ``leaves``
+    (``_assign``) and returns (the N values at the last iteration's start,
     the gradient evaluations each lane made). ``value_and_grad(xs, lanes)``
     as ``lane_objective`` gives it."""
     n = x.shape[0]
@@ -416,206 +402,10 @@ def _lbfgs_stage(config: DIPConfig, x, value_and_grad, dev, assign):
                 x, values, k = lbfgs_iter(x)
                 n_evals += k
             done += 1
-        assign(x)
+        _assign(leaves, x)
         return values, n_evals
 
     return run
-
-
-def _check_optimizer(config: DIPConfig) -> None:
-    if config.optimizer not in ("adam", "lbfgs"):
-        raise ValueError(f"unknown optimizer {config.optimizer!r}")
-    if (config.optimizer == "lbfgs"
-            and config.lbfgs_line_search not in ("fixed", "zoom")):
-        raise ValueError(
-            f"unknown lbfgs_line_search {config.lbfgs_line_search!r}")
-
-
-def _dip_core(lr_image, hr_image, config: DIPConfig, generator, dev,
-              lpips_fn: Callable | None, valid_hw=None):
-    with span("dip.call", lanes=1):
-        _check_optimizer(config)
-        parts = _opt_parts(config)
-        _check_input(config)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        lr = _nchw(_image(lr_image, dev))
-        hr = _image(hr_image, dev)
-        _, h, w, _ = hr.shape
-
-        with span("dip.build"):
-            net, downsampler = build(config, generator)
-            net.to(dev, memory_format=torch.channels_last)
-            downsampler.to(dev)
-            dev_gen = torch.Generator(device=dev)
-            dev_gen.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
-                                                  generator=generator)))
-
-        def draw(fn):  # NHWC draw, viewed as channels_last NCHW
-            return _nchw(fn((1, h, w, config.input_depth),
-                            generator=dev_gen, device=dev))
-
-        if config.input_method == "noise":
-            z = draw(torch.rand) * config.input_noise_scale
-        else:
-            z = _nchw(meshgrid_input(h, w).to(dev).contiguous())
-
-        leaves = list(net.parameters())
-        if "input" in parts:
-            z = z.detach().clone().requires_grad_()
-            leaves.append(z)
-        kernel = None
-        if "down" in parts:
-            kernel = downsampler.kernel.detach().clone().requires_grad_()
-            leaves.append(kernel)
-
-        lr_mask = None
-        if valid_hw is not None:
-            lr_valid = (valid_hw[0] // config.factor,
-                        valid_hw[1] // config.factor)
-            lr_mask = _valid_mask(lr.shape[2:4], lr_valid, dev)
-            lr_mask = lr_mask[..., 0][None, None]  # (1, 1, h, w)
-
-        def metrics_of():
-            with torch.no_grad():
-                return _head(net(z, update_stats=False).permute(0, 2, 3, 1),
-                             hr, valid_hw, lpips_fn)
-
-        n_chunks, chunk_len, remainder = _chunks(config)
-        std = config.reg_noise_std
-        # each iteration's reg noise is drawn into this buffer, which a
-        # graph can read (the same draws as torch.randn's)
-        noise_hwc = (torch.empty((1, h, w, config.input_depth), device=dev)
-                     if std > 0 else None)
-        noise = None
-        done = 0  # Adam iterations so far, the warm-up's included
-
-        def fwd_bwd():
-            return dip_forward_backward(net, downsampler, z, noise, lr, std,
-                                        kernel, lr_mask)
-
-        adam = _AdamStage(torch.optim.Adam(
-            leaves, lr=config.learning_rate if config.optimizer == "adam"
-            else WARMUP_LR), fwd_bwd, dev)
-
-        def adam_run(n_iter):
-            nonlocal noise, done
-            loss = torch.full((), float("nan"), device=dev)
-            for _ in range(n_iter):
-                with span("dip.iteration", index=done,
-                          optimizer=adam.optimizer, graph=adam.mode):
-                    if noise_hwc is not None:
-                        noise = _nchw(noise_hwc.normal_(generator=dev_gen))
-                    loss = adam.step()
-                done += 1
-            return loss.clone()  # a replay's loss is the graph's own tensor
-
-        heads, losses, evals = [], [], []
-        try:
-            if config.optimizer == "adam":
-                def run(n_iter):
-                    evals.append(n_iter)
-                    return adam_run(n_iter)
-            else:
-                adam_run(WARMUP_ITERS)
-                adam.close()
-                noise = None  # the L-BFGS stage and its resolve are noise-free
-                x, value_and_grad = flat_objective(net, downsampler, leaves,
-                                                   z, lr, kernel, lr_mask)
-                stage = _lbfgs_stage(config, x[None],
-                                     one_lane(value_and_grad), dev,
-                                     lambda xs: _assign(leaves, xs[0]))
-
-                def run(n_iter):
-                    values, n_evals = stage(n_iter)
-                    evals.append(int(n_evals[0]))
-                    return values[0]
-
-            for _ in range(n_chunks):
-                with span("dip.head"):  # chunk head: iteration % log_freq == 0
-                    heads.append(metrics_of())
-                losses.append(run(chunk_len))
-            run(remainder)
-        finally:
-            adam.close()
-        rem = evals.pop()
-        evals[-1] += rem  # the remainder counts in the last chunk
-
-        with span("dip.resolve"):
-            z_final = z
-            if not config.resolve_clean and noise is not None:
-                z_final = z + noise * std
-            with torch.no_grad():
-                resolved = net(z_final, update_stats=False).permute(0, 2, 3, 1)
-            cols = [torch.stack(c).float().cpu().numpy() for c in zip(*heads)]
-            curves = {"psnr": cols[0], "ssim": cols[1], "lpips": cols[2],
-                      "loss": torch.stack(losses).float().cpu().numpy(),
-                      "evals": np.asarray(evals, np.int64)}
-        return resolved.contiguous(), curves
-
-
-def dip_superresolve(lr_image, hr_image, config: DIPConfig,
-                     generator: torch.Generator | None = None,
-                     device: str | torch.device = "cuda",
-                     lpips_fn: Callable | None = None):
-    """Super-resolve one image with DIP.
-
-    Args:
-      lr_image: (1, h, w, 3) uint8 or float [0,1] (numpy or tensor)
-      hr_image: (1, H, W, 3) with H = factor*h — ground truth, used only
-        for the metric curves, as in the reference
-      config: hyperparameters
-      generator: CPU torch.Generator for the net init; it also seeds the
-        device generator that draws z and the reg noise (default seed 0)
-      device: 'cuda' (default) or 'cpu'
-      lpips_fn: optional LPIPS(pred, target) over NHWC images; the LPIPS
-        curve is NaN without one
-
-    Returns:
-      resolved: (1, H, W, 3) f32 tensor on ``device``
-      curves: dict of numpy arrays 'psnr'/'ssim'/'lpips'/'loss' of length
-        num_iter // log_freq (1 when num_iter < log_freq), and 'evals', the
-        objective gradients each chunk evaluated (its L-BFGS trial points
-        included, the warm-up not)
-    """
-    return _dip_core(lr_image, hr_image, config, generator,
-                     resolve_device(device), lpips_fn)
-
-
-def dip_superresolve_bucketed(lr_image, hr_image, valid_hw,
-                              config: DIPConfig,
-                              generator: torch.Generator | None = None,
-                              device: str | torch.device = "cuda",
-                              lpips_fn: Callable | None = None):
-    """Shape-bucketed single-image DIP.
-
-    lr/hr are zero-padded (bottom/right) to a bucket size; valid_hw is the
-    true (H, W) of the HR image. The loss and the curves are masked to the
-    valid region; the caller crops the returned (padded) image to valid_hw.
-    """
-    valid = (int(valid_hw[0]), int(valid_hw[1]))
-    return _dip_core(lr_image, hr_image, config, generator,
-                     resolve_device(device), lpips_fn, valid_hw=valid)
-
-
-def dip_superresolve_scan_bucketed(lr_images, hr_images, valid_hws,
-                                   generators, config: DIPConfig,
-                                   device: str | torch.device = "cuda",
-                                   lpips_fn: Callable | None = None):
-    """Bucketed DIP over a group of images, one after another on the card,
-    a fresh net per image from its own generator (the JAX package maps the
-    group with lax.map). lr_images (N, 1, h, w, 3), hr_images
-    (N, 1, H, W, 3), valid_hws (N, 2), N generators. Returns the stacked
-    resolved images (N, 1, H, W, 3) and curves with a leading N axis."""
-    out, curves = [], []
-    for lr_i, hr_i, v, gen in zip(lr_images, hr_images, valid_hws,
-                                  generators):
-        res, c = dip_superresolve_bucketed(lr_i, hr_i, v, config, gen,
-                                           device, lpips_fn)
-        out.append(res)
-        curves.append(c)
-    return torch.stack(out), {k: np.stack([c[k] for c in curves])
-                              for k in curves[0]}
 
 
 def stack_lanes(nets, device) -> dict[str, torch.Tensor]:
@@ -626,24 +416,27 @@ def stack_lanes(nets, device) -> dict[str, torch.Tensor]:
             .requires_grad_() for k in named[0]}
 
 
-def _lane_out(template, p, z_lane):
-    from torch.func import functional_call
-
+def _lane_out(template, p, z_lane, update_stats: bool = False):
     # train-mode statistics; the running-statistics update is skipped
     # (vmap refuses its in-place write, and DIP never reads it)
-    return functional_call(template, p, (z_lane,), {"update_stats": False})
+    return torch.func.functional_call(template, p, (z_lane,),
+                                      {"update_stats": update_stats})
 
 
 def _lane_loss(template, downsampler, p, z_lane, lr_lane, k_lane, m_lane):
     """``dip_loss`` of one lane, for vmap."""
-    out = _lane_out(template, p, z_lane)
-    out_lr = (downsampler(out) if k_lane is None
-              else downsampler.conv2d_with(out, k_lane))
-    err = (out_lr - lr_lane).square()
-    if m_lane is None:
-        return err.mean()
-    count = torch.clamp(m_lane.sum(), min=1.0) * err.shape[1]
-    return (err * m_lane).sum() / count
+    return dip_loss(functools.partial(_lane_out, template, p), downsampler,
+                    z_lane, lr_lane, k_lane, m_lane, update_stats=False)
+
+
+def _lanes_loss(template, downsampler, kernel, lr_mask):
+    """``_lane_loss`` vmapped over the lanes: (params, z, lr_images,
+    kernel, lr_mask) -> (N,), the kernel and the mask per lane where
+    given."""
+    return torch.func.vmap(
+        functools.partial(_lane_loss, template, downsampler),
+        in_dims=(0, 0, 0, None if kernel is None else 0,
+                 None if lr_mask is None else 0))
 
 
 def lane_iteration(template, downsampler, params, optimizer, z, noise,
@@ -659,11 +452,7 @@ def lane_iteration(template, downsampler, params, optimizer, z, noise,
     one step count, so one Adam over them is N per-lane Adams. Returns the
     lanes' losses (N,), detached; no host sync.
     """
-    from torch.func import vmap
-
-    loss_fn = vmap(functools.partial(_lane_loss, template, downsampler),
-                   in_dims=(0, 0, 0, None if kernel is None else 0,
-                            None if lr_mask is None else 0))
+    loss_fn = _lanes_loss(template, downsampler, kernel, lr_mask)
     z_iter = z if noise is None else z + noise * reg_noise_std
     losses = loss_fn(params, z_iter, lr_images, kernel, lr_mask)
     optimizer.zero_grad(set_to_none=True)
@@ -693,8 +482,6 @@ def lane_objective(template, downsampler, params, z, lr_images, kernel=None,
     and one backward of the losses' sum, whose gradient is each lane's own
     (lanes share no leaf). z, lr_images, kernel and lr_mask as
     ``lane_iteration`` takes them."""
-    from torch.func import vmap
-
     leaves = lane_leaves(params, z, kernel)
     names = list(params)
     shapes = [leaf.shape[1:] for leaf in leaves]
@@ -702,9 +489,7 @@ def lane_objective(template, downsampler, params, z, lr_images, kernel=None,
     n = leaves[0].shape[0]
     train_z, train_k = z.requires_grad, (kernel is not None
                                          and kernel.requires_grad)
-    loss_fn = vmap(functools.partial(_lane_loss, template, downsampler),
-                   in_dims=(0, 0, 0, None if kernel is None else 0,
-                            None if lr_mask is None else 0))
+    loss_fn = _lanes_loss(template, downsampler, kernel, lr_mask)
     z, kernel = z.detach(), None if kernel is None else kernel.detach()
 
     def value_and_grad(xs, lanes):
@@ -729,155 +514,320 @@ def lane_objective(template, downsampler, params, z, lr_images, kernel=None,
     return x, value_and_grad
 
 
-@torch.no_grad()
-def _assign_lanes(leaves, x: torch.Tensor) -> None:
-    """Write the lanes' flat rows x (N, n) into the stacked leaves."""
-    offset = 0
-    for p in leaves:
-        size = p[0].numel()
-        p.copy_(x[:, offset:offset + size].reshape(p.shape))
-        offset += size
+class _Seam:
+    """What a call's single net and its lane set do differently;
+    ``_dip_core`` does the rest. A seam lays out the call's nets (``named``:
+    their trained parameters, stacked along a lane axis in a lane set) and
+    gives ``stack`` (the lanes' tensors, each in the single net's layout,
+    in the seam's), ``repeat`` (one tensor for every lane), ``bind``,
+    ``mode`` (how the next Adam iteration runs), ``adam_iteration()`` (the
+    next iteration's reg noise and step; the lanes' (N,) losses),
+    ``forward_nhwc(z)`` ((N, 1, H, W, 3), running statistics untouched),
+    ``objective()`` (L-BFGS's x (N, n) and value_and_grad(xs, lanes)) and
+    ``close()``."""
+
+    noise = None  # the last Adam iteration's reg noise, in the seam's layout
+
+    def bind(self, z, lr, std, kernel, lr_mask, learning_rate):
+        """The objective's tensors, in the seam's layout; its leaves, in
+        ``flat_objective``'s order, and one Adam over them."""
+        self.z, self.lr, self.std = z, lr, std
+        self.kernel, self.lr_mask = kernel, lr_mask
+        self.leaves = lane_leaves(self.named, z, kernel)
+        self.optimizer = torch.optim.Adam(self.leaves, lr=learning_rate)
+
+    def close(self):
+        pass
 
 
-def _lane_core(lr_images, hr_images, config: DIPConfig, generators, dev,
-               lpips_fn: Callable | None, valid_hws=None):
-    """N lanes of ``_dip_core`` as one batched computation.
+class _SingleNet(_Seam):
+    """One net (N = 1): a SkipNet in channels_last, with conv_fusion as
+    configured. Its Adam iterations run through ``_AdamStage`` (replayed
+    as a CUDA graph on a card), each drawing its reg noise into one buffer,
+    which a graph can read (the same draws as torch.randn's); L-BFGS
+    through ``flat_objective``."""
+
+    mode = property(lambda self: self.stage.mode)
+
+    def __init__(self, nets, downsampler, dev_gens, shape, dev):
+        (self.net,), (self.gen,) = nets, dev_gens
+        self.net.to(dev, memory_format=torch.channels_last)
+        self.down = downsampler.to(dev)
+        self.named = dict(self.net.named_parameters())
+        self.shape, self.dev = shape, dev
+
+    @staticmethod
+    def stack(ts):
+        return ts[0]
+
+    @staticmethod
+    def repeat(t):
+        return t
+
+    def bind(self, *args):
+        super().bind(*args)
+        self.noise_hwc = (torch.empty(self.shape, device=self.dev)
+                          if self.std > 0 else None)
+        # the graph reads the buffer through one view; the stage holds no
+        # reference to the seam, so a call's tensors go when it returns
+        self.stage = _AdamStage(self.optimizer, functools.partial(
+            dip_forward_backward, self.net, self.down, self.z,
+            None if self.noise_hwc is None else _nchw(self.noise_hwc),
+            self.lr, self.std, self.kernel, self.lr_mask), self.dev)
+        self.close = self.stage.close
+
+    def adam_iteration(self):
+        if self.noise_hwc is not None:
+            self.noise = _nchw(self.noise_hwc.normal_(generator=self.gen))
+        return self.stage.step().reshape(1)
+
+    def forward_nhwc(self, z):
+        return self.net(z, update_stats=False).permute(0, 2, 3, 1)[None]
+
+    def objective(self):
+        x, value_and_grad = flat_objective(self.net, self.down, self.leaves,
+                                           self.z, self.lr, self.kernel,
+                                           self.lr_mask)
+        return x[None], one_lane(value_and_grad)
+
+
+class _LaneSet(_Seam):
+    """N lanes as one batched computation (tpusr's vmap): the lanes'
+    parameters stacked along a leading axis (``stack_lanes``) and
+    ``torch.func.vmap`` over ``functional_call`` of one template net,
+    built with conv_fusion 'off'. Its Adam iterations are eager
+    ``lane_iteration``s, each lane's reg noise drawn from its own device
+    generator outside vmap and stacked (vmap's own randomness would not
+    reproduce a lane's stream); L-BFGS through ``lane_objective``."""
+
+    mode = "eager"
+    stack = staticmethod(torch.stack)
+
+    def __init__(self, nets, downsampler, dev_gens, shape, dev):
+        self.template = nets[0].to(dev)
+        self.down = downsampler.to(dev)
+        self.named = stack_lanes(nets, dev)
+        self.gens, self.shape, self.dev = dev_gens, shape, dev
+
+    def repeat(self, t):
+        return t[None].expand(len(self.gens), *t.shape).contiguous()
+
+    def adam_iteration(self):
+        self.noise = None if self.std == 0 else torch.stack([
+            _nchw(torch.randn(self.shape, generator=g, device=self.dev))
+            for g in self.gens])
+        return lane_iteration(self.template, self.down, self.named,
+                              self.optimizer, self.z, self.noise, self.lr,
+                              self.std, self.kernel, self.lr_mask)
+
+    def forward_nhwc(self, z):
+        return torch.func.vmap(functools.partial(_lane_out, self.template))(
+            self.named, z).permute(0, 1, 3, 4, 2)
+
+    def objective(self):
+        return lane_objective(self.template, self.down, self.named, self.z,
+                              self.lr, self.kernel, self.lr_mask)
+
+
+def _dip_core(lr_images, hr_images, config: DIPConfig, generators, device,
+              lpips_fn: Callable | None, valid_hws, seam_type):
+    """N images' DIP runs, one fresh net each, on a ``seam_type`` of N
+    lanes (``_SingleNet`` for one image, ``_LaneSet``).
 
     Lane i is the single-image run with ``generators[i]``: its net is
     initialised from it, and the device generator it seeds draws the lane's
-    z and reg noise, drawn per lane outside vmap and stacked (vmap's own
-    randomness would not reproduce a lane's stream). The forward is
-    train-mode with the running-statistics update skipped: vmap refuses
-    BatchNorm's in-place update, and no DIP forward ever reads those
-    statistics (every one normalises with its batch's). L-BFGS runs on the
-    lanes' stacked flat vectors (``lane_objective``): 'fixed' steps every
-    lane with no host sync; 'zoom' runs one line search per lane on the
-    host, each round one batched value-and-gradient call over the lanes
-    still searching, so each lane takes its single run's trial points.
+    z and reg noise. L-BFGS runs on the lanes' (N, n) stack of flat
+    vectors: 'fixed' steps every lane with no host sync; 'zoom' runs one
+    line search per lane on the host, each round one batched
+    value-and-gradient call over the lanes still searching, so each lane
+    takes its single run's trial points. Returns (N, 1, H, W, 3) and
+    curves (N, chunks).
     """
+    dev, generators = resolve_device(device), list(generators)
     with span("dip.call", lanes=len(generators)):
-        from torch.func import vmap
-
-        _check_optimizer(config)
-        parts = _opt_parts(config)
-        _check_input(config)
-        config = dataclasses.replace(config, conv_fusion="off")
+        if config.optimizer not in ("adam", "lbfgs"):
+            raise ValueError(f"unknown optimizer {config.optimizer!r}")
+        if (config.optimizer == "lbfgs"
+                and config.lbfgs_line_search not in ("fixed", "zoom")):
+            raise ValueError(
+                f"unknown lbfgs_line_search {config.lbfgs_line_search!r}")
+        parts = {p.strip() for p in config.opt_over.split(",")}
+        unknown = parts - {"net", "input", "down"}
+        if unknown:
+            raise ValueError(f"unknown opt_over parts {sorted(unknown)}")
+        if config.input_method not in ("noise", "meshgrid"):
+            raise ValueError(f"unknown input method {config.input_method!r}")
+        if config.input_method == "meshgrid" and config.input_depth != 2:
+            raise ValueError("meshgrid input requires input_depth=2")
+        if seam_type is _LaneSet:  # as in tpusr, no kernel runs under vmap
+            config = dataclasses.replace(config, conv_fusion="off")
         n = len(generators)
         if not (len(lr_images) == len(hr_images) == n):
             raise ValueError("lr_images, hr_images and generators differ in "
                              "length")
-        lr = torch.stack([_nchw(_image(a, dev)) for a in lr_images])
-        # (N, 1, H, W, 3)
-        hr = torch.stack([_image(a, dev) for a in hr_images])
-        _, _, h, w, _ = hr.shape
+        hr = [_image(a, dev) for a in hr_images]  # N of (1, H, W, 3)
+        _, h, w, _ = hr[0].shape
+        shape = (1, h, w, config.input_depth)
 
         with span("dip.build"):
             nets, dev_gens = [], []
             for gen in generators:
                 net, downsampler = build(config, gen)
                 nets.append(net)
-                dg = torch.Generator(device=dev)
-                dg.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
-                                                 generator=gen)))
-                dev_gens.append(dg)
-            template = nets[0].to(dev)
-            downsampler.to(dev)
-            params = stack_lanes(nets, dev)
-
-        def draw(fn):  # one NHWC draw per lane, stacked as (N, 1, C, H, W)
-            return torch.stack([_nchw(fn((1, h, w, config.input_depth),
-                                         generator=g, device=dev))
-                                for g in dev_gens])
+                dev_gens.append(torch.Generator(device=dev).manual_seed(
+                    int(torch.randint(0, 2 ** 62, (1,), generator=gen))))
+            seam = seam_type(nets, downsampler, dev_gens, shape, dev)
 
         if config.input_method == "noise":
-            z = draw(torch.rand) * config.input_noise_scale
+            z = seam.stack([_nchw(torch.rand(shape, generator=g, device=dev))
+                            for g in dev_gens]) * config.input_noise_scale
         else:
-            z = _nchw(meshgrid_input(h, w).to(dev))[None].expand(
-                n, -1, -1, -1, -1).contiguous()
+            z = seam.repeat(_nchw(meshgrid_input(h, w).to(dev)))
         if "input" in parts:
             z = z.detach().clone().requires_grad_()
         kernel = None
         if "down" in parts:
-            kernel = downsampler.kernel.detach()[None].repeat(n, 1, 1)
-            kernel.requires_grad_()
-        leaves = lane_leaves(params, z, kernel)
-
+            kernel = (seam.repeat(downsampler.kernel.detach()).clone()
+                      .requires_grad_())
+        lr = seam.stack([_nchw(_image(a, dev)) for a in lr_images])
         lr_mask = None
         if valid_hws is not None:
-            lr_mask = torch.stack([
-                _valid_mask(lr.shape[-2:], (int(v[0]) // config.factor,
-                                            int(v[1]) // config.factor),
+            valid_hws = [(int(v[0]), int(v[1])) for v in valid_hws]
+            lr_mask = seam.stack([
+                _valid_mask(lr.shape[-2:], (v[0] // config.factor,
+                                            v[1] // config.factor),
                             dev)[..., 0][None, None] for v in valid_hws])
-        batched_out = vmap(functools.partial(_lane_out, template))
-
-        def forward_nhwc(z_in):  # (N, 1, H, W, 3)
-            return batched_out(params, z_in).permute(0, 1, 3, 4, 2)
-
-        def metrics_of():  # (N, 3)
-            with torch.no_grad():
-                out = forward_nhwc(z)
-                return torch.stack([torch.stack(_head(
-                    out[i], hr[i], None if valid_hws is None else
-                    (int(valid_hws[i][0]), int(valid_hws[i][1])), lpips_fn))
-                    for i in range(n)])
-
-        n_chunks, chunk_len, remainder = _chunks(config)
-        std = config.reg_noise_std
-        noise = None
+        # one metrics head per log_freq iterations (one when fewer)
+        chunk_len = min(config.num_iter, config.log_freq)
+        n_chunks = config.num_iter // config.log_freq or 1
+        seam.bind(z, lr, config.reg_noise_std, kernel, lr_mask,
+                  config.learning_rate if config.optimizer == "adam"
+                  else WARMUP_LR)
         done = 0  # Adam iterations so far, the warm-up's included
 
-        def adam_run(optimizer, n_iter):
-            nonlocal noise, done
+        def adam_run(n_iter):
+            """(the N losses of the last of n_iter iterations, each lane's
+            gradient evaluations), as an L-BFGS stage's ``run`` gives."""
+            nonlocal done
             losses = torch.full((n,), float("nan"), device=dev)
             for _ in range(n_iter):
-                with span("dip.iteration", index=done, optimizer=optimizer):
-                    noise = draw(torch.randn) if std > 0 else None
-                    losses = lane_iteration(template, downsampler, params,
-                                            optimizer, z, noise, lr, std,
-                                            kernel, lr_mask)
+                with span("dip.iteration", index=done,
+                          optimizer=seam.optimizer, graph=seam.mode):
+                    losses = seam.adam_iteration()
                 done += 1
-            return losses
+            # a replay's loss is the graph's own tensor
+            return losses.clone(), np.full(n, n_iter, np.int64)
 
         heads, losses, evals = [], [], []
-        if config.optimizer == "adam":
-            optimizer = torch.optim.Adam(leaves, lr=config.learning_rate)
-
-            def run(n_iter):
-                evals.append(np.full(n, n_iter, np.int64))
-                return adam_run(optimizer, n_iter)
-        else:
-            adam_run(torch.optim.Adam(leaves, lr=WARMUP_LR), WARMUP_ITERS)
-            noise = None  # the L-BFGS stage and its resolve are noise-free
-            x, value_and_grad = lane_objective(template, downsampler, params,
-                                               z, lr, kernel, lr_mask)
-            stage = _lbfgs_stage(config, x, value_and_grad, dev,
-                                 functools.partial(_assign_lanes, leaves))
-
-            def run(n_iter):
-                values, n_evals = stage(n_iter)
+        try:
+            run = adam_run
+            if config.optimizer == "lbfgs":
+                adam_run(WARMUP_ITERS)
+                seam.close()
+                seam.noise = None  # the L-BFGS stage and its resolve are noise-free
+                run = _lbfgs_stage(config, *seam.objective(), dev,
+                                   seam.leaves)
+            for _ in range(n_chunks):
+                # chunk head: iteration % log_freq == 0, (N, 3)
+                with span("dip.head"), torch.no_grad():
+                    heads.append(torch.stack([torch.stack(_head(
+                        out, hr_i, valid, lpips_fn)) for out, hr_i, valid
+                        in zip(seam.forward_nhwc(z), hr,
+                               valid_hws or [None] * n)]))
+                values, n_evals = run(chunk_len)
+                losses.append(values)
                 evals.append(n_evals)
-                return values
+            # the remainder counts in the last chunk
+            evals[-1] = evals[-1] + run(config.num_iter
+                                        - n_chunks * chunk_len)[1]
+        finally:
+            seam.close()
 
-        for _ in range(n_chunks):
-            with span("dip.head"):
-                heads.append(metrics_of())
-            losses.append(run(chunk_len))
-        run(remainder)
-        rem = evals.pop()
-        evals[-1] = evals[-1] + rem  # the remainder counts in the last chunk
-
-        with span("dip.resolve"):
+        with span("dip.resolve"), torch.no_grad():
             z_final = z
-            if not config.resolve_clean and noise is not None:
-                z_final = z + noise * std
-            with torch.no_grad():
-                resolved = forward_nhwc(z_final).contiguous()
+            if not config.resolve_clean and seam.noise is not None:
+                z_final = z + seam.noise * seam.std
+            resolved = seam.forward_nhwc(z_final).contiguous()
             m = torch.stack(heads, 1).float().cpu().numpy()  # (N, chunks, 3)
             curves = {"psnr": m[..., 0], "ssim": m[..., 1],
                       "lpips": m[..., 2],
                       "loss": torch.stack(losses, 1).float().cpu().numpy(),
                       "evals": np.stack(evals, 1)}
         return resolved, curves
+
+
+def _single(lr_image, hr_image, config, generator, device, lpips_fn,
+            valid_hw=None):
+    """One image's call: one lane on a ``_SingleNet``, the lane axis taken
+    off the image and the curves."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    resolved, curves = _dip_core(
+        [lr_image], [hr_image], config, [generator], device, lpips_fn,
+        None if valid_hw is None else [valid_hw], _SingleNet)
+    return resolved[0], {k: v[0] for k, v in curves.items()}
+
+
+def dip_superresolve(lr_image, hr_image, config: DIPConfig,
+                     generator: torch.Generator | None = None,
+                     device: str | torch.device = "cuda",
+                     lpips_fn: Callable | None = None):
+    """Super-resolve one image with DIP.
+
+    Args:
+      lr_image: (1, h, w, 3) uint8 or float [0,1] (numpy or tensor)
+      hr_image: (1, H, W, 3) with H = factor*h — ground truth, used only
+        for the metric curves, as in the reference
+      config: hyperparameters
+      generator: CPU torch.Generator for the net init; it also seeds the
+        device generator that draws z and the reg noise (default seed 0)
+      device: 'cuda' (default) or 'cpu'
+      lpips_fn: optional LPIPS(pred, target) over NHWC images; the LPIPS
+        curve is NaN without one
+
+    Returns:
+      resolved: (1, H, W, 3) f32 tensor on ``device``
+      curves: dict of numpy arrays 'psnr'/'ssim'/'lpips'/'loss' of length
+        num_iter // log_freq (1 when num_iter < log_freq), and 'evals', the
+        objective gradients each chunk evaluated (its L-BFGS trial points
+        included, the warm-up not)
+    """
+    return _single(lr_image, hr_image, config, generator, device, lpips_fn)
+
+
+def dip_superresolve_bucketed(lr_image, hr_image, valid_hw,
+                              config: DIPConfig,
+                              generator: torch.Generator | None = None,
+                              device: str | torch.device = "cuda",
+                              lpips_fn: Callable | None = None):
+    """Shape-bucketed single-image DIP.
+
+    lr/hr are zero-padded (bottom/right) to a bucket size; valid_hw is the
+    true (H, W) of the HR image. The loss and the curves are masked to the
+    valid region; the caller crops the returned (padded) image to valid_hw.
+    """
+    return _single(lr_image, hr_image, config, generator, device, lpips_fn,
+                   valid_hw)
+
+
+def dip_superresolve_scan_bucketed(lr_images, hr_images, valid_hws,
+                                   generators, config: DIPConfig,
+                                   device: str | torch.device = "cuda",
+                                   lpips_fn: Callable | None = None):
+    """Bucketed DIP over a group of images, one after another on the card,
+    a fresh net per image from its own generator (the JAX package maps the
+    group with lax.map). lr_images (N, 1, h, w, 3), hr_images
+    (N, 1, H, W, 3), valid_hws (N, 2), N generators. Returns the stacked
+    resolved images (N, 1, H, W, 3) and curves with a leading N axis."""
+    out, curves = [], []
+    for lr_i, hr_i, v, gen in zip(lr_images, hr_images, valid_hws,
+                                  generators):
+        res, c = dip_superresolve_bucketed(lr_i, hr_i, v, config, gen,
+                                           device, lpips_fn)
+        out.append(res)
+        curves.append(c)
+    return torch.stack(out), {k: np.stack([c[k] for c in curves])
+                              for k in curves[0]}
 
 
 def dip_superresolve_batch(lr_images, hr_images,
@@ -895,8 +845,8 @@ def dip_superresolve_batch(lr_images, hr_images,
     lane: each lane's own gradient evaluations, as its single run counts
     them).
     """
-    return _lane_core(lr_images, hr_images, config, list(generators),
-                      resolve_device(device), lpips_fn)
+    return _dip_core(lr_images, hr_images, config, generators, device,
+                     lpips_fn, None, _LaneSet)
 
 
 def dip_superresolve_batch_bucketed(lr_images, hr_images, valid_hws,
@@ -907,9 +857,8 @@ def dip_superresolve_batch_bucketed(lr_images, hr_images, valid_hws,
     """The lane batch over images zero-padded to one bucket; valid_hws
     (N, 2) the true HR sizes: each lane's loss and curves are masked to
     its own valid region (``dip_superresolve_bucketed`` per lane)."""
-    return _lane_core(lr_images, hr_images, config, list(generators),
-                      resolve_device(device), lpips_fn,
-                      valid_hws=np.asarray(valid_hws))
+    return _dip_core(lr_images, hr_images, config, generators, device,
+                     lpips_fn, valid_hws, _LaneSet)
 
 
 def pad_to_bucket(arr, bucket: int):
