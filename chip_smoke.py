@@ -9,7 +9,7 @@ below hold unchanged); D and E as before.
 Phases (any failure raises, so the exit code is non-zero):
   1. build the CUDA kernels from tpusr_torch/csrc (one nvcc per source, in
      parallel, sm_90a): A and B (fused_conv3x3.cu), C (dense_block.cu),
-     D and E (degrade.cu);
+     D and E (degrade.cu), the skip net's BatchNorm glue (bn_act.cu);
   2. hold each kernel against its plain PyTorch version at its main path's
      shapes: f32 kernels against the plain version in f64 (max relative
      error 1e-4), bf16 ones against it in bf16 (2e-2); C also on its own
@@ -30,14 +30,18 @@ Phases (any failure raises, so the exit code is non-zero):
      path exactly), Gaussian equal except at a fraction <= 1e-4 of elements
      off by exactly 1 (log/cos of two libraries an ulp apart next to an
      integer); then tests/test_pallas.py's statistics on the HR frame;
+     the BatchNorm glue's five kernels (ops/bn_act.py) at the DIP shapes
+     (512^2, 256^2 and 16^2 at 128 channels, the 512^2 skip branch at 4)
+     against their plain versions in f64, the (C,) f32 sums at 1e-4 in
+     both dtypes;
   3. DIP: check the whole fused net against the unfused one (in f64) on a
      128^2 input, then drive the main path, ``tpusr_torch.cli.dip.main``,
      at full width (input 32, 128 channels, 5 scales, x8) on a synthetic
      DIV2K-layout pair (512^2 HR canvas): 100 f32 iterations and a short
      bf16 run, with the kernels' launch counts read around each run; then
      the time of one iteration and a torch.profiler breakdown of it, whose
-     window must record all 20 kernel-A and 10 kernel-B launches of each
-     fused iteration;
+     window must record all 20 kernel-A and 10 kernel-B launches and the
+     BatchNorm glue's 170 of each fused iteration;
   4. RRDB: the full-width RRDBNet (nf 64, nb 23, gc 32, x4), fused in f32
      against unfused in f64 on a 27 x 45 input (ragged tiles at every
      scale); then bench.py's rrdb
@@ -71,7 +75,11 @@ Phases (any failure raises, so the exit code is non-zero):
      B in f32 and bf16 at down0_conv2 and up0_conv against one cuDNN call
      each (F.conv2d, conv2d_weight; f32 without TF32), with f32's FMA
      and 3xTF32 bounds both named (the bound is the lower); A and B at the
-     SRGAN training shapes (batch 8) against cuDNN too;
+     SRGAN training shapes (batch 8) against cuDNN too; the BatchNorm
+     glue's kernels at up0's 512^2 x 128 in f32 and bf16, each beside its
+     bytes at 3.35 TB/s, its plain version and, as a yardstick the port
+     never calls, F.batch_norm + F.leaky_relu (forward or autograd's
+     backward);
   8. SRGAN training at full width (16 blocks, x8, D at 192^2, batch 8):
      the training G's forward and backward, fused (g_fuse 'train') in f32
      against the unfused net in f64 on the 24^2 patch (output 1e-4,
@@ -198,9 +206,21 @@ C = 128  # DIP skip-net width
 KERNEL_A, KERNEL_B = "namespace)::fwd_", "namespace)::wgrad_"
 # kernel C's profiler names: dense_block_kernel_bf16, dense_block_kernel_f32
 KERNEL_C = "namespace)::dense_block_kernel_"
+# profiler names of the BatchNorm glue's kernels (bn_act.cu), by LAUNCHES key
+BN_ACT = {k: f"namespace)::{k}_kernel" for k in (
+    "channel_moments", "affine_act", "affine_act_grad", "moments_grad",
+    "partials_sum")}
+# their launches in one DIP training iteration (5 levels): 5 moments and 5
+# normalizes a level forward; 7 normalize backwards (5 folded into the
+# moments' backward) and 5 moments' backwards; a partials sum after each of
+# the 12 reductions
+DIP_ITER_BN_ACT = {"channel_moments": 25, "affine_act": 25,
+                   "affine_act_grad": 35, "moments_grad": 25,
+                   "partials_sum": 60}
 # kernel launches of one DIP training iteration: 10 fused convs forward,
-# their 10 dgrads (kernel A) and 10 wgrads (kernel B)
-DIP_ITER_LAUNCHES = {KERNEL_A: 20, KERNEL_B: 10}
+# their 10 dgrads (kernel A) and 10 wgrads (kernel B), and the glue's
+DIP_ITER_LAUNCHES = {KERNEL_A: 20, KERNEL_B: 10,
+                     **{BN_ACT[k]: n for k, n in DIP_ITER_BN_ACT.items()}}
 LR_RRDB = (270, 480)  # bench.py's rrdb workload: a 1080 x 1920 frame at x4
 # kernel C at sides on each side of its tiles' edges: 7, 8, 9 and 19 (the
 # f32 tile of 8) and 15, 16, 17 and 35 (the bf16 tile of 16), N = 2
@@ -350,6 +370,151 @@ def check_fused_net():
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ------------------------------------------------------ BatchNorm glue
+# (label, NHWC shape) of the glue at the DIP path's sizes (a 512^2 canvas)
+BN_ACT_SHAPES = (("up0", (1, 512, 512, C)), ("down0", (1, 256, 256, C)),
+                 ("deepest", (1, 16, 16, C)), ("skip0", (1, 512, 512, 4)))
+
+
+def bn_act_operands(shape, dtype, gen):
+    """x, g (NHWC, dtype), es, eb, dm1, dm2 ((C,) f32)."""
+    c = shape[-1]
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+
+    return ((rnd(*shape) * 1.5 + 0.3).to(dtype), rnd(*shape).to(dtype),
+            rnd(c).abs() + 0.5, rnd(c) * 0.5, rnd(c), rnd(c))
+
+
+def bn_act_plain(x, g, es, eb, dm1, dm2, act="leaky_relu"):
+    """Each glue kernel's result from the plain versions, in f64."""
+    from tpusr_torch.ops import bn_act
+
+    x, g, es, eb, dm1, dm2 = (t.double() for t in (x, g, es, eb, dm1, dm2))
+    n = x.numel() // x.shape[-1]
+    xn = x.permute(0, 3, 1, 2)
+    m1, m2 = bn_act.channel_moments_reference(xn)
+    dx, des, deb = bn_act.prologue_backward_reference(g, x, es, eb, act)
+    return {"channel_moments": (m1, m2),
+            "affine_act": (bn_act.affine_act_reference(xn, es, eb, act)
+                           .permute(0, 2, 3, 1),),
+            "affine_act_grad": (dx, des, deb),
+            "moments_grad": ((dm1 + 2 * x * dm2) / n + dx,)}
+
+
+def bn_act_kernels(x, g, es, eb, dm1, dm2, act="leaky_relu"):
+    from tpusr_torch.ops import bn_act
+
+    return {"channel_moments": bn_act._moments_cuda(x),
+            "affine_act": (bn_act._affine_act_cuda(x, es, eb, act),),
+            "affine_act_grad": bn_act._affine_act_grad_cuda(g, x, es, eb,
+                                                            act, True),
+            "moments_grad": (bn_act._moments_grad_cuda(
+                x, dm1, dm2, (g, es, eb, act)),)}
+
+
+def check_bn_act_kernels():
+    """Phase 2, the BatchNorm glue: each kernel at BN_ACT_SHAPES against the
+    plain versions in f64 (the bf16 kernels on the same bf16 values):
+    max |kernel - plain| / max |plain| under 1e-4 for the (C,) f32 sums in
+    both dtypes and for f32 activations, 2e-2 for bf16 ones. Returns each
+    kernel's largest f32 absolute error (partials_sum's: the sums')."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {k: 0.0 for k in BN_ACT}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape in BN_ACT_SHAPES:
+            ops = bn_act_operands(shape, dtype, gen)
+            got, want = bn_act_kernels(*ops), bn_act_plain(*ops)
+            torch.cuda.synchronize()
+            errs = {}
+            for k in got:
+                for i, (a, b) in enumerate(zip(got[k], want[k])):
+                    tol = 1e-4 if a.dim() == 1 else TOL[dtype]
+                    errs[f"{k}[{i}]"] = (rel_err(a, b), tol)
+                    if dtype == torch.float32:
+                        worst[k] = max(worst[k], abs_err(a, b))
+                        if a.dim() == 1:
+                            worst["partials_sum"] = max(
+                                worst["partials_sum"], abs_err(a, b))
+            print(f"check bn_act {label} {shape} {str(dtype)[6:]}: " + " ".join(
+                f"{k} {v:.3e}" for k, (v, _) in errs.items()))
+            bad = {k: v for k, v in errs.items() if not v[0] < v[1]}
+            if bad:
+                raise AssertionError(f"bn_act at {label} {dtype}: kernels "
+                                     f"disagree with the plain versions: "
+                                     f"{bad}")
+    return worst
+
+
+def time_bn_act_kernels():
+    """Phase 7, the BatchNorm glue at up0's (1, 512, 512, 128), f32 and
+    bf16: each kernel's device time beside its bytes (read once, written
+    once) at 3.35 TB/s, its plain version's time and a yardstick the port
+    never calls, F.batch_norm + F.leaky_relu: training-mode forward for the
+    moments (which also normalizes), eval-mode forward for the normalize,
+    autograd's backward of the eval-mode pair for the normalize backward
+    and of the training-mode pair for the moments' (folded) backward.
+    partials_sum is timed inside the launches that end with it."""
+    from tpusr_torch.ops import bn_act
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shape = BN_ACT_SHAPES[0][1]
+    p, c = shape[0] * shape[1] * shape[2], shape[3]
+    rows = {k: {} for k in BN_ACT if k != "partials_sum"}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, es, eb, dm1, dm2 = bn_act_operands(shape, dtype, gen)
+        isz, act = x.element_size(), "leaky_relu"
+        act_bytes = p * c * isz
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w, b = es.to(dtype), eb.to(dtype)
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        xl = xn.detach().clone().requires_grad_()
+        wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+        y_eval = F.leaky_relu(F.batch_norm(xl, rm, rv, wl, bl, False), 0.2)
+        y_train = F.leaky_relu(F.batch_norm(xl, None, None, wl, bl, True),
+                               0.2)
+        pending = (g, es, eb, act)
+
+        def plain_moments_grad():
+            xf = x.float()
+            d = torch.where(xf * es + eb >= 0, g.float(), g.float() * 0.2)
+            return ((dm1 + 2 * xf * dm2) / p + d * es).to(dtype)
+
+        ops = {
+            "channel_moments": (
+                lambda: bn_act._moments_cuda(x),
+                lambda: bn_act.channel_moments_reference(xn),
+                lambda: F.batch_norm(xn, None, None, w, b, True),
+                act_bytes + 2 * c * 4, 3 * p * c),
+            "affine_act": (
+                lambda: bn_act._affine_act_cuda(x, es, eb, act),
+                lambda: bn_act.affine_act_reference(xn, es, eb, act),
+                lambda: F.leaky_relu(F.batch_norm(xn, rm, rv, w, b, False),
+                                     0.2),
+                2 * act_bytes + 2 * c * 4, 3 * p * c),
+            "affine_act_grad": (
+                lambda: bn_act._affine_act_grad_cuda(g, x, es, eb, act, True),
+                lambda: bn_act.prologue_backward_reference(g, x, es, eb, act),
+                lambda: torch.autograd.grad(y_eval, (xl, wl, bl), gn,
+                                            retain_graph=True),
+                3 * act_bytes + 4 * c * 4, 6 * p * c),
+            "moments_grad": (
+                lambda: bn_act._moments_grad_cuda(x, dm1, dm2, pending),
+                plain_moments_grad,
+                lambda: torch.autograd.grad(y_train, (xl, wl, bl), gn,
+                                            retain_graph=True),
+                3 * act_bytes + 4 * c * 4, 7 * p * c),
+        }
+        for k, (kern, plain, lib, nbytes, flops) in ops.items():
+            row = measure(f"{k} at up0 {shape} {str(dtype)[6:]}", kern,
+                          plain, lib, flops, nbytes, torch.float32)
+            row["shape"] = f"up0: {shape}, {str(dtype)[6:]}"
+            rows[k][str(dtype)[6:]] = row
+        del xl, wl, bl, y_eval, y_train
+    return rows
+
+
 def write_pair(root):
     """A synthetic DIV2K-layout pair: HR 1024^2 and LR_x8 128^2, which
     get_image_pair's /2 turns into a 512^2 HR / 64^2 LR canvas."""
@@ -373,6 +538,7 @@ def write_pair(root):
 
 
 def reset_counts():
+    from tpusr_torch.ops import bn_act
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
     from tpusr_torch.ops import fused_degrade as fd
@@ -380,14 +546,16 @@ def reset_counts():
     fc.reset_launch_counts()
     db.reset_launch_counts()
     fd.reset_launch_counts()
+    bn_act.reset_launch_counts()
 
 
 def read_counts():
+    from tpusr_torch.ops import bn_act
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
     from tpusr_torch.ops import fused_degrade as fd
 
-    return {**fc.LAUNCHES, **db.LAUNCHES, **fd.LAUNCHES}
+    return {**fc.LAUNCHES, **db.LAUNCHES, **fd.LAUNCHES, **bn_act.LAUNCHES}
 
 
 def run_main_path(cli, root, dtype, num_iter, log_freq):
@@ -417,7 +585,9 @@ def run_main_path(cli, root, dtype, num_iter, log_freq):
             and curve[-1] > curve[0]):
         raise AssertionError(f"PSNR not finite and rising: {curve} {final}")
     if not (counts["fused_conv3x3_fwd"] >= 20 * num_iter
-            and counts["fused_conv3x3_wgrad"] >= 10 * num_iter):
+            and counts["fused_conv3x3_wgrad"] >= 10 * num_iter
+            and all(counts[k] >= n * num_iter
+                    for k, n in DIP_ITER_BN_ACT.items())):
         raise AssertionError(f"main path missed the kernels: {counts}")
     return counts
 
@@ -3176,6 +3346,7 @@ def main() -> int:
                                        train_worst["fused_conv3x3_wgrad"],
                                        dp_worst["fused_conv3x3_wgrad"])
     worst.update(check_degrade_kernels())
+    worst.update(check_bn_act_kernels())
     print(f"phase 2: kernels agree with their plain versions; largest f32 "
           f"abs errors {worst}")
 
@@ -3232,9 +3403,14 @@ def main() -> int:
     for k, rows in train_timed.items():
         timed[k]["srgan_train"] = rows
     timed.update(time_degrade_kernels())
+    bn_timed = time_bn_act_kernels()
+    for k, rows in bn_timed.items():
+        timed[k] = dict(rows["float32"], bfloat16=rows["bfloat16"])
+    timed["partials_sum"] = {"shape": "timed inside channel_moments and "
+                                      "affine_act_grad"}
     print("phase 7: timed (the record below is at up0_conv, 512^2, for A "
           "and B, at (1, 270, 480, 64) for C, at the DIV2K HR frame for D "
-          "and E)")
+          "and E, at up0's (1, 512, 512, 128) for the BatchNorm glue)")
 
     import dataclasses
     from tpusr_torch.engine.gan import GANTrainConfig
@@ -3290,12 +3466,14 @@ def main() -> int:
                 "dense_block": "tpusr/ops/pallas_dense.py:103",
                 "fused_add_gaussian_noise": "tpusr/ops/pallas_degrade.py:38",
                 "fused_add_salt_pepper_noise":
-                    "tpusr/ops/pallas_degrade.py:52"}
+                    "tpusr/ops/pallas_degrade.py:52",
+                **{k: "none: XLA fuses tpusr's BatchNorm glue" for k in BN_ACT}}
     sources = {"fused_conv3x3_fwd": "tpusr_torch/csrc/fused_conv3x3.cu",
                "fused_conv3x3_wgrad": "tpusr_torch/csrc/fused_conv3x3.cu",
                "dense_block": "tpusr_torch/csrc/dense_block.cu",
                "fused_add_gaussian_noise": "tpusr_torch/csrc/degrade.cu",
-               "fused_add_salt_pepper_noise": "tpusr_torch/csrc/degrade.cu"}
+               "fused_add_salt_pepper_noise": "tpusr_torch/csrc/degrade.cu",
+               **{k: "tpusr_torch/csrc/bn_act.cu" for k in BN_ACT}}
     designs = {
         "fused_conv3x3_fwd": "wgmma bf16 (m64nNk16, N 64/128, 16x16-pixel "
                              "tile, 9 taps as descriptors into one staged "
@@ -3316,11 +3494,15 @@ def main() -> int:
         "fused_add_gaussian_noise": "Philox4x32-10 in the kernel, one thread "
                                     "per element pair",
         "fused_add_salt_pepper_noise": "Philox4x32-10 in the kernel, one "
-                                       "thread per pixel"}
+                                       "thread per pixel",
+        **{k: "one pass over NHWC, a thread owning 16 bytes of channels for "
+              "the launch, UNROLL pixels in flight; block partials in a fixed "
+              "tree, summed by partials_sum" for k in BN_ACT}}
     record = {"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
-             design=designs[k], launches=sum(c[k] for c in paths.values()),
-             launches_by_path={p: c[k] for p, c in paths.items()},
+             design=designs[k],
+             launches=sum(c.get(k, 0) for c in paths.values()),
+             launches_by_path={p: c.get(k, 0) for p, c in paths.items()},
              max_abs_err=worst[k], **timed[k]) for k in replaces]}
     print(card)
     print(json.dumps(record))

@@ -11,7 +11,8 @@ the graph and every later one replays it. The card's backward is not
 bitwise repeatable (the bilinear-upsample and pad backwards add with
 atomics), so two eager loops from one seed part after a few Adam steps;
 held step by step, the card's gradients agree to GRAD_RTOL. On the card
-the iterations also count their A/B launches in ``LAUNCHES``, and the
+the iterations also count their A/B and BatchNorm-glue launches in
+``LAUNCHES``, and the
 graph's memory is freed with the call. The card cases are marked ``cuda``
 and skip without a card; on a machine with one:
 
@@ -26,6 +27,7 @@ import torch
 from torch.optim.optimizer import register_optimizer_step_pre_hook
 
 from tpusr_torch.engine import dip
+from tpusr_torch.ops import bn_act
 from tpusr_torch.ops import fused_conv as fc
 from tpusr_torch.utils.profiling import observe
 
@@ -51,6 +53,24 @@ def _inputs(hw, factor):
     hr = torch.rand(1, hw, hw, 3, generator=g)
     lr = torch.nn.functional.avg_pool2d(hr.permute(0, 3, 1, 2), factor)
     return lr.permute(0, 2, 3, 1).contiguous(), hr
+
+
+def _counts():
+    return {**fc.LAUNCHES, **bn_act.LAUNCHES}
+
+
+def _glue(levels, grad=True):
+    """ops/bn_act.py's launches of one forward (and backward) of a net whose
+    every level has a skip branch: five moments and five normalizes a
+    level; backward, seven normalize backwards and five moments' backwards,
+    each a kernel, and a partials sum after each reduction."""
+    if not grad:
+        return {"channel_moments": 5 * levels, "affine_act": 5 * levels,
+                "affine_act_grad": 0, "moments_grad": 0,
+                "partials_sum": 5 * levels}
+    return {"channel_moments": 5 * levels, "affine_act": 5 * levels,
+            "affine_act_grad": 7 * levels, "moments_grad": 5 * levels,
+            "partials_sum": 12 * levels}
 
 
 def _flat(tensors):
@@ -108,8 +128,8 @@ class Twin:
 
 def _call(lr, hr, config, seed, dev, on_step=None):
     """``dip_superresolve``'s image and curves; its last optimizer; and
-    each iteration's ``graph`` field and A/B launches (between the span's
-    enter and exit). ``on_step(opt)`` runs before each optimizer step."""
+    each iteration's ``graph`` field and kernel launches (between the
+    span's enter and exit). ``on_step(opt)`` runs before each optimizer step."""
     opts, spans, at_enter = [], [], {}
 
     def pre(opt, args, kwargs):
@@ -120,13 +140,14 @@ def _call(lr, hr, config, seed, dev, on_step=None):
 
     def enter(rec):
         if rec.name == "dip.iteration":
-            at_enter[rec.id] = dict(fc.LAUNCHES)
+            at_enter[rec.id] = _counts()
 
     def leave(rec):
         if rec.name == "dip.iteration":
             before = at_enter.pop(rec.id)
+            now = _counts()
             spans.append((rec.fields["graph"],
-                          {k: fc.LAUNCHES[k] - before[k] for k in before}))
+                          {k: now[k] - before[k] for k in before}))
 
     hook = register_optimizer_step_pre_hook(pre)
     handle = observe(enter, leave)
@@ -185,22 +206,24 @@ def test_every_iteration_is_the_eager_step_at_its_leaves(dev, fusion,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scales, hw, per_iter", [
-    (3, HW, {"fused_conv3x3_fwd": 12, "fused_conv3x3_wgrad": 6}),
+    (3, HW, {"fused_conv3x3_fwd": 12, "fused_conv3x3_wgrad": 6,
+             **_glue(3)}),
     # the benchmark cell's layout: 5 scales, 10 fused convs a forward
-    (5, 64, {"fused_conv3x3_fwd": 20, "fused_conv3x3_wgrad": 10})])
+    (5, 64, {"fused_conv3x3_fwd": 20, "fused_conv3x3_wgrad": 10,
+             **_glue(5)})])
 def test_every_iteration_counts_its_launches(card, scales, hw, per_iter):
     config = dataclasses.replace(SMALL, num_scales=scales)
     lr, hr = _inputs(hw, config.factor)
-    before = dict(fc.LAUNCHES)
+    before = _counts()
     *_, spans = _call(lr, hr, config, 4, card)
     assert [m for m, _ in spans][2:4] == ["capture", "replay"]
     assert all(n == per_iter for _, n in spans)
     # and the call's total: its two heads and the resolve one forward each
-    per_forward = per_iter["fused_conv3x3_wgrad"]
-    assert {k: fc.LAUNCHES[k] - before[k] for k in before} == {
-        "fused_conv3x3_fwd": 12 * per_iter["fused_conv3x3_fwd"]
-        + 3 * per_forward,
-        "fused_conv3x3_wgrad": 12 * per_forward}
+    per_forward = {"fused_conv3x3_fwd": per_iter["fused_conv3x3_wgrad"],
+                   "fused_conv3x3_wgrad": 0, **_glue(scales, grad=False)}
+    now = _counts()
+    assert {k: now[k] - before[k] for k in before} == {
+        k: 12 * per_iter[k] + 3 * per_forward[k] for k in per_iter}
 
 
 @pytest.mark.cuda

@@ -68,7 +68,7 @@ from tpusr_torch.engine.metrics import _valid_mask, psnr_masked, ssim_masked
 from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
 from tpusr_torch.models.skip import SkipNet, build_dip_net
-from tpusr_torch.ops import fused_conv
+from tpusr_torch.ops import bn_act, fused_conv
 from tpusr_torch.ops.resample import Downsampler
 from tpusr_torch.utils.profiling import span
 
@@ -223,6 +223,8 @@ class _GraphHome:
 
 
 _graph_home = functools.cache(_GraphHome)  # one per card
+# the launch counters of the kernels a DIP iteration runs
+_COUNTERS = (fused_conv.LAUNCHES, bn_act.LAUNCHES)
 
 
 class _AdamStage:
@@ -241,8 +243,8 @@ class _AdamStage:
     that stay put for the stage: the net's leaves and buffers, z, the noise
     buffer, the LR image, its mask and the trained kernel. Adam stays an
     eager call on the caller's stream after each iteration, so PyTorch's
-    optimizer-step hooks fire as in an eager loop, and
-    ``fused_conv.LAUNCHES`` gains the launches the capture counted at
+    optimizer-step hooks fire as in an eager loop, and the kernels'
+    ``LAUNCHES`` (``_COUNTERS``) gain the launches the capture counted at
     every later replay. Elsewhere every iteration is eager. ``close()``
     drops the graph and frees the gradients in its pool, for the next
     capture (``_GraphHome``).
@@ -276,8 +278,9 @@ class _AdamStage:
         if mode == "capture":
             self._capture()
         else:
-            for k, n in self.launches.items():
-                fused_conv.LAUNCHES[k] += n
+            for counts, launched in zip(_COUNTERS, self.launches):
+                for k, n in launched.items():
+                    counts[k] += n
         self.graph.replay()
         self.optimizer.step()
         return self.loss
@@ -293,10 +296,10 @@ class _AdamStage:
     def _capture(self) -> None:
         # not torch.cuda.graph, which synchronises and empties the cache
         self.optimizer.zero_grad(set_to_none=True)
-        before = dict(fused_conv.LAUNCHES)
+        before = [dict(counts) for counts in _COUNTERS]
         self.graph, self.loss = self.home.capture(self.fwd_bwd)
-        self.launches = {k: n - before[k]
-                         for k, n in fused_conv.LAUNCHES.items()}
+        self.launches = [{k: n - b[k] for k, n in counts.items()}
+                         for counts, b in zip(_COUNTERS, before)]
 
     def close(self) -> None:
         if self.graph is not None:

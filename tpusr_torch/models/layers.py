@@ -13,7 +13,9 @@ JAX package's one-pass formulas: var = max(E[x^2] - E[x]^2, 0) in f32, the
 biased variance normalizes, the unbiased one goes into the running stats.
 Two hooks carry the fused dataflow: ``conv_stats`` (the producing conv
 already reduced sum/sum^2 of its bias-free output) and ``return_affine``
-(the consuming conv applies the normalize in its prologue). Under
+(the consuming conv applies the normalize in its prologue). The skip net's
+fused dataflow takes its affines from ``affine``, whose moments, normalize
+and their backward run as ops/bn_act.py's kernels on a card. Under
 ``global_batch_stats(all_sum, world)`` a train-mode BatchNorm's
 statistics span the batches of every rank of a data-parallel group, as
 tpusr's jitted DP step computes them over the global batch.
@@ -30,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpusr_torch.ops.bn_act import (affine_act, channel_moments,
+                                    channel_moments_reference)
 from tpusr_torch.ops.fused_conv import fused_conv3x3
 
 # The conv-fusion default, read once at import as tpusr reads it
@@ -127,10 +131,11 @@ def conv_apply(x, weight, stride: int, pad_mode: str, bias=None):
 class Conv(nn.Module):
     """2-D conv (OIHW weight) with torch-style 'same' padding.
 
-    ``forward(x, prologue=(es, eb, act), emit_stats=True)`` runs the fused
-    3x3 kernel: the previous BN's normalize + activation ride the input read,
-    and the kernel reduces per-channel [sum, sum^2] of the bias-free output
-    for the next BN. It then returns (y_without_bias, stats, bias).
+    ``forward(x, prologue=(es, eb, act, fold), emit_stats=True)`` runs the
+    fused 3x3 kernel: the previous BN's normalize + activation ride the
+    input read (``fold``: that BN's, from ``BatchNorm.affine``), and the
+    kernel reduces per-channel [sum, sum^2] of the bias-free output for the
+    next BN. It then returns (y_without_bias, stats, bias).
 
     ``auto_fuse=True`` with ``fusion='auto'`` sends a plain call of a 3x3
     stride-1 conv through the fused kernel too (no prologue, no stats), with
@@ -169,9 +174,10 @@ class Conv(nn.Module):
                               self.pad_mode, b)
         if self.stride != 1 or self.weight.shape[-1] != 3:
             raise ValueError("the fused path takes 3x3 stride-1 convs only")
-        es, eb, act = prologue if prologue is not None else (None, None, None)
+        es, eb, act, fold = prologue if prologue is not None else (None,) * 4
         out = fused_conv3x3(_nhwc(x), _hwio(self.weight), es, eb, act=act,
-                            pad_mode=self.pad_mode, stats=emit_stats)
+                            pad_mode=self.pad_mode, stats=emit_stats,
+                            fold=fold)
         bias = self.bias
         if emit_stats:
             y, st = out
@@ -190,6 +196,10 @@ class BatchNorm(nn.Module):
       to x), so mean = sum/n + b goes to the running stats while the affine
       uses the mean of x as passed.
     * ``return_affine=True``: return (eff_scale, eff_bias) in f32.
+    * ``affine(...)``: (eff_scale, eff_bias, fold), the fused dataflow's
+      form of ``return_affine``: its train-mode moments come from
+      ``ops/bn_act.channel_moments`` (a kernel on a card), whose ``fold``
+      the one consumer that normalizes x takes (None on the CPU).
     * ``update_stats=False``: a train-mode forward whose running-stat update
       is discarded (the DIP metric and resolve forwards, the G update's
       discriminator).
@@ -222,8 +232,22 @@ class BatchNorm(nn.Module):
         if stat_groups > 1 and (conv_stats is not None or return_affine):
             raise ValueError("stat_groups > 1 is incompatible with "
                              "conv_stats/return_affine")
-        in_dtype = x.dtype
-        pending = 0.0
+        if stat_groups > 1 and not use_running_average:
+            return self._grouped(x, stat_groups, update_stats)
+        es, eb, _ = self._affine(x, use_running_average, conv_stats,
+                                 update_stats, kernels=False)
+        if return_affine:
+            return es, eb
+        return x * _per_channel(es, x.dtype) + _per_channel(eb, x.dtype)
+
+    def affine(self, x, use_running_average: bool = False, *,
+               conv_stats=None, update_stats: bool = True):
+        return self._affine(x, use_running_average, conv_stats,
+                            update_stats, kernels=True)
+
+    def _affine(self, x, use_running_average, conv_stats, update_stats,
+                kernels):
+        pending, fold = 0.0, None
         if use_running_average:
             mean, var = self.running_mean, self.running_var
             if conv_stats is not None:
@@ -238,19 +262,14 @@ class BatchNorm(nn.Module):
             pending = cb
             if update_stats:
                 self._update(mean, var, n)
-        elif stat_groups > 1:
-            return self._grouped(x, stat_groups, update_stats)
         else:
-            mean, var, n = _batch_moments(x)
+            mean, var, n, fold = _moments(x, kernels)
             if update_stats:
                 self._update(mean, var, n)
         inv = torch.rsqrt(var + self.eps)
         eff_scale = inv * self.weight
         eff_bias = self.bias - (mean - pending) * inv * self.weight
-        if return_affine:
-            return eff_scale, eff_bias
-        return (x * _per_channel(eff_scale, in_dtype)
-                + _per_channel(eff_bias, in_dtype))
+        return eff_scale, eff_bias, fold
 
     def _grouped(self, x, g: int, update_stats: bool):
         if x.shape[0] % g:
@@ -280,20 +299,30 @@ class BatchNorm(nn.Module):
 def _local_moments(x):
     """Per-channel E[x] and E[x^2] over (N, H, W) in f32 (an f64 net, the
     exact yardstick of chip_smoke.py, keeps f64) and the count."""
-    dims = (0, 2, 3)
-    acc = torch.promote_types(x.dtype, torch.float32)
-    return (x.mean(dims, dtype=acc), x.square().mean(dims, dtype=acc),
-            x.numel() // x.shape[1])
+    return (*channel_moments_reference(x), x.numel() // x.shape[1])
 
 
-def _batch_moments(x):
-    """Per-channel mean and biased variance over (N, H, W), one pass
-    (E[x^2] - E[x]^2, clamped: bf16 squares can dip below zero), and the
-    count; under ``global_batch_stats`` over the group's global batch."""
-    mean, mean2, n = _local_moments(x)
+def _batch_stats(mean, mean2, n: int):
+    """Per-channel mean and biased variance from E[x], E[x^2] over n, one
+    pass (E[x^2] - E[x]^2, clamped: bf16 squares can dip below zero), and
+    the count; under ``global_batch_stats`` over the group's global batch."""
     if _STAT_REDUCE is not None:
         mean, mean2, n = _global_moments(mean, mean2, n)
     return mean, torch.clamp(mean2 - mean.square(), min=0.0), n
+
+
+def _batch_moments(x):
+    """``_batch_stats`` of x's eager moments."""
+    return _batch_stats(*_local_moments(x))
+
+
+def _moments(x, kernels: bool):
+    """(mean, biased var, count, fold): ``_batch_moments`` with fold None,
+    or with ``kernels`` the moments of ``ops/bn_act.channel_moments``."""
+    if not kernels:
+        return (*_batch_moments(x), None)
+    m1, m2, fold = channel_moments(x)
+    return (*_batch_stats(m1, m2, x.numel() // x.shape[1]), fold)
 
 
 class SplitBatchNorm(nn.Module):
@@ -301,7 +330,8 @@ class SplitBatchNorm(nn.Module):
 
     Declares the same (sum(splits),) params and stats as a BatchNorm over
     the concat; statistics are per channel, so each part normalizes with
-    its slice.
+    its slice. ``affine`` gives each part's (eff_scale, eff_bias, fold), as
+    ``BatchNorm.affine``.
     """
 
     def __init__(self, splits: Sequence[int], momentum: float = 0.1,
@@ -317,26 +347,34 @@ class SplitBatchNorm(nn.Module):
 
     def forward(self, xs, use_running_average: bool = False, *,
                 return_affine: bool = False, update_stats: bool = True):
+        affines = self._affines(xs, use_running_average, update_stats,
+                                kernels=False)
+        if return_affine:
+            return [(es, eb) for es, eb, _ in affines]
+        return [x * _per_channel(es, x.dtype) + _per_channel(eb, x.dtype)
+                for x, (es, eb, _) in zip(xs, affines)]
+
+    def affine(self, xs, use_running_average: bool = False, *,
+               update_stats: bool = True):
+        return self._affines(xs, use_running_average, update_stats,
+                             kernels=True)
+
+    def _affines(self, xs, use_running_average, update_stats, kernels):
         outs, means, varis = [], [], []
         off = 0
         for x, ci in zip(xs, self.splits):
+            fold = None
             if use_running_average:
                 mean = self.running_mean[off:off + ci]
                 var = self.running_var[off:off + ci]
             else:
-                mean, var, n = _batch_moments(x)
+                mean, var, n, fold = _moments(x, kernels)
                 means.append(mean)
                 varis.append(var * (n / max(n - 1, 1)))
             sc = self.weight[off:off + ci]
             bi = self.bias[off:off + ci]
             inv = torch.rsqrt(var + self.eps)
-            eff_scale = inv * sc
-            eff_bias = bi - mean * inv * sc
-            if return_affine:
-                outs.append((eff_scale, eff_bias))
-            else:
-                outs.append(x * _per_channel(eff_scale, x.dtype)
-                            + _per_channel(eff_bias, x.dtype))
+            outs.append((inv * sc, bi - mean * inv * sc, fold))
             off += ci
         if not use_running_average and update_stats:
             with torch.no_grad():
@@ -354,10 +392,11 @@ class SplitConv(nn.Module):
 
     One (features, sum(splits), k, k) weight, fan_in = k*k*sum(splits), as a
     Conv over the concat would have. With ``prologues`` (per-part
-    (eff_scale, eff_bias) from a SplitBatchNorm) the LAST part, the trunk,
-    runs through the fused kernel with its prologue, the other parts' sum as
-    its base input and, with ``emit_stats``, the stats of the merged output;
-    the other parts apply their affine explicitly. Returns y, or
+    (eff_scale, eff_bias, fold) from ``SplitBatchNorm.affine``) the LAST
+    part, the trunk, runs through the fused kernel with its prologue, the
+    other parts' sum as its base input and, with ``emit_stats``, the stats
+    of the merged output; the other parts apply their affine explicitly
+    (``ops/bn_act.affine_act``). Returns y, or
     (y_without_bias, stats, bias) with ``emit_stats``.
     """
 
@@ -391,14 +430,14 @@ class SplitConv(nn.Module):
                 out = fused_conv3x3(
                     _nhwc(x), _hwio(w), pro[0], pro[1], act=None,
                     pad_mode=self.pad_mode, stats=emit_stats,
-                    base=None if y is None else _nhwc(y))
+                    base=None if y is None else _nhwc(y), fold=pro[2])
                 if emit_stats:
                     out, st = out
                 y = _nchw(out)
             else:
                 if pro is not None:
-                    x = (x * _per_channel(pro[0], x.dtype)
-                         + _per_channel(pro[1], x.dtype))
+                    es, eb, fold = pro
+                    x = affine_act(x, es, eb, None, fold)
                 part = conv_apply(x, w.to(x.dtype), self.stride,
                                   self.pad_mode)
                 y = part if y is None else y + part

@@ -15,9 +15,12 @@ head: 1x1 conv to n_out + sigmoid.
 ``conv_fusion='auto'`` sends each level's ``down{i}_conv2`` and the trunk
 part of ``up{i}_conv`` through the fused 3x3 kernel (ops/fused_conv.py): the
 preceding BN's normalize (+ LeakyReLU) rides the conv's input read and the
-conv's stats epilogue replaces the next BN's reduction. Same math as
-``'off'``, the unfused dataflow. ``'auto'`` defers to TPUSR_CONV_FUSION,
-read at import (``layers.fusion_mode``), as in the JAX package.
+conv's stats epilogue replaces the next BN's reduction; every BatchNorm
+takes its moments and applies its normalize + activation through
+ops/bn_act.py, one kernel a pass on a card (``BatchNorm.affine`` and
+``affine_act``). Same math as ``'off'``, the unfused dataflow. ``'auto'``
+defers to TPUSR_CONV_FUSION, read at import (``layers.fusion_mode``), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from tpusr_torch.models.layers import (
     pool2x2,
     upsample2x,
 )
+from tpusr_torch.ops.bn_act import affine_act
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -78,6 +82,7 @@ class SkipNet(nn.Module):
                    and pad in ("zero", "reflection"))
         self.fuse_down = fusable and filter_size_down == 3
         self.fuse_up = fusable and filter_size_up == 3
+        self.fuse_bn = fusable
         self.prologue_act = "leaky_relu" if act_fun == "LeakyReLU" else None
 
         dt, g = self.dtype, generator
@@ -130,26 +135,37 @@ class SkipNet(nn.Module):
         def bn(name, t, **kw):
             return mod(name)(t, ura, update_stats=update_stats, **kw)
 
+        def affine(name, t, **kw):
+            return mod(name).affine(t, ura, update_stats=update_stats, **kw)
+
+        def bn_act(name, t, **kw):
+            """act(BN(t)): on the fused dataflow, ops/bn_act.py's kernels."""
+            if not self.fuse_bn:
+                return act(bn(name, t, **kw))
+            es, eb, fold = affine(name, t, **kw)
+            return affine_act(t, es, eb, self.prologue_act, fold)
+
         def level(i: int, h: torch.Tensor) -> torch.Tensor:
             branches = []
             if self.num_channels_skip[i] != 0:
                 s = mod(f"skip{i}_conv")(h)
-                branches.append(act(bn(f"skip{i}_bn", s)))
+                branches.append(bn_act(f"skip{i}_bn", s))
 
             d = mod(f"down{i}_conv1")(h)
             if self.downsample_mode != "stride":
                 d = pool2x2(d, self.downsample_mode)
             if self.fuse_down:
-                es, eb = bn(f"down{i}_bn1", d, return_affine=True)
+                es, eb, fold = affine(f"down{i}_bn1", d)
                 d2, st, b2 = mod(f"down{i}_conv2")(
-                    d, prologue=(es, eb, self.prologue_act), emit_stats=True)
+                    d, prologue=(es, eb, self.prologue_act, fold),
+                    emit_stats=True)
                 n = d2.numel() // d2.shape[1]
-                d = act(bn(f"down{i}_bn2", d2,
-                           conv_stats=(st[0], st[1], n, b2)))
+                d = bn_act(f"down{i}_bn2", d2,
+                           conv_stats=(st[0], st[1], n, b2))
             else:
-                d = act(bn(f"down{i}_bn1", d))
+                d = bn_act(f"down{i}_bn1", d)
                 d = mod(f"down{i}_conv2")(d)
-                d = act(bn(f"down{i}_bn2", d))
+                d = bn_act(f"down{i}_bn2", d)
 
             if i < self.n_scales - 1:
                 d = level(i + 1, d)
@@ -157,18 +173,18 @@ class SkipNet(nn.Module):
 
             parts = center_crop_to_min(branches)
             if self.fuse_up:
-                affines = bn(f"merge{i}_bn", parts, return_affine=True)
-                z, st, b2 = mod(f"up{i}_conv")(parts, prologues=affines,
-                                               emit_stats=True)
+                z, st, b2 = mod(f"up{i}_conv")(
+                    parts, prologues=affine(f"merge{i}_bn", parts),
+                    emit_stats=True)
                 n = z.numel() // z.shape[1]
-                z = act(bn(f"up{i}_bn", z, conv_stats=(st[0], st[1], n, b2)))
+                z = bn_act(f"up{i}_bn", z, conv_stats=(st[0], st[1], n, b2))
             else:
                 parts = bn(f"merge{i}_bn", parts)
                 z = mod(f"up{i}_conv")(parts)
-                z = act(bn(f"up{i}_bn", z))
+                z = bn_act(f"up{i}_bn", z)
             if self.need1x1_up:
                 z = mod(f"up{i}_conv1x1")(z)
-                z = act(bn(f"up{i}_bn1x1", z))
+                z = bn_act(f"up{i}_bn1x1", z)
             return z
 
         if self.dtype is not None:

@@ -26,8 +26,10 @@ beside it. ``LAUNCHES`` counts kernel launches, so a run can show that its
 main path went through the kernels.
 
 The backward pieces that the JAX package leaves to XLA outside its kernels
-stay plain PyTorch here: the stats cotangent G = gy + gst0 + 2*y*gst1, the
-reflect fold corrections, and the prologue backward.
+stay plain PyTorch here: the stats cotangent G = gy + gst0 + 2*y*gst1 and
+the reflect fold corrections. The prologue backward is
+``ops/bn_act.prologue_backward``, a kernel on a card; given the ``fold`` of
+x's moments it leaves dx to their backward.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from tpusr_torch.ops.bn_act import prologue_backward
 
 LAUNCHES = {"fused_conv3x3_fwd": 0, "fused_conv3x3_wgrad": 0}
 
@@ -280,15 +284,16 @@ def reflect_fold_corrections(dpa, G, w):
 
 class FusedConv3x3(torch.autograd.Function):
     """Kernel A forward; backward = dgrad (kernel A) + wgrad (kernel B) +
-    plain elementwise pieces, with no forward recompute."""
+    the prologue backward + plain elementwise pieces, with no forward
+    recompute."""
 
     @staticmethod
-    def forward(ctx, x, w, es, eb, base, act, reflect, stats):
+    def forward(ctx, x, w, es, eb, base, act, reflect, stats, fold):
         y, st = fused_conv3x3_fwd(x, w, es, eb, base, act=act,
                                   reflect=reflect, stats=stats)
         # y rides along only for the stats cotangent (d sum y^2 / dy = 2y)
         ctx.save_for_backward(x, w, es, eb, y if stats else None)
-        ctx.act, ctx.reflect, ctx.stats = act, reflect, stats
+        ctx.act, ctx.reflect, ctx.stats, ctx.fold = act, reflect, stats, fold
         ctx.base_dtype = None if base is None else base.dtype
         return (y, st) if stats else y
 
@@ -307,32 +312,30 @@ class FusedConv3x3(torch.autograd.Function):
             dpa, _ = fused_conv3x3_fwd(G, w_rot, reflect=False)
             if ctx.reflect:
                 dpa = reflect_fold_corrections(dpa, G, w)
-            dpre = dpa
-            if ctx.act == "leaky_relu":
-                a0 = x if es is None else x * es.to(x.dtype) + eb.to(x.dtype)
-                dpre = torch.where(a0 >= 0, dpa, dpa * 0.2)
             if es is not None:
-                dx = dpre * es.to(x.dtype)
-                des = (dpre.float() * x.float()).sum((0, 1, 2))
-                deb = dpre.float().sum((0, 1, 2))
+                dx, des, deb = prologue_backward(
+                    dpa, x, es, eb, ctx.act, ctx.fold if need_x else None)
+            elif ctx.act == "leaky_relu":
+                dx = torch.where(x >= 0, dpa, dpa * 0.2)
             else:
-                dx = dpre
+                dx = dpa
         if need_w:
             dw = fused_conv3x3_wgrad(x, G, es, eb, act=ctx.act,
                                      reflect=ctx.reflect).to(w.dtype)
         if need_base:
             db = G.to(ctx.base_dtype)
-        return dx, dw, des, deb, db, None, None, None
+        return dx, dw, des, deb, db, None, None, None, None
 
 
 def fused_conv3x3(x, w, eff_scale=None, eff_bias=None, *, act=None,
-                  pad_mode="reflection", stats=False, base=None):
+                  pad_mode="reflection", stats=False, base=None, fold=None):
     """y = conv3x3(act(x*eff_scale + eff_bias)) [+ base], differentiable.
 
     x: (N,H,W,Cin) f32/bf16, contiguous on CUDA; w: (3,3,Cin,Cout), cast to
     x's dtype here (inside autograd, so dw flows back in w's dtype);
     eff_scale/eff_bias: (Cin,) f32 or None; act: None | 'leaky_relu';
-    base: (N,H,W,Cout) or None. Returns y, or (y, stats) with
+    base: (N,H,W,Cout) or None; fold: the ``ops/bn_act.Fold`` of x's
+    moments, whose backward then writes dx. Returns y, or (y, stats) with
     stats = [sum y, sum y^2] per channel of the f32 output including base.
     """
     if pad_mode not in ("reflection", "zero"):
@@ -340,4 +343,4 @@ def fused_conv3x3(x, w, eff_scale=None, eff_bias=None, *, act=None,
     if (eff_scale is None) != (eff_bias is None):
         raise ValueError("eff_scale and eff_bias go together")
     return FusedConv3x3.apply(x, w.to(x.dtype), eff_scale, eff_bias, base,
-                              act, pad_mode == "reflection", stats)
+                              act, pad_mode == "reflection", stats, fold)
