@@ -9,7 +9,8 @@ below hold unchanged); D and E as before.
 Phases (any failure raises, so the exit code is non-zero):
   1. build the CUDA kernels from tpusr_torch/csrc (one nvcc per source, in
      parallel, sm_90a): A and B (fused_conv3x3.cu), C (dense_block.cu),
-     D and E (degrade.cu), the skip net's BatchNorm glue (bn_act.cu);
+     D and E (degrade.cu), the skip net's BatchNorm glue (bn_act.cu),
+     SwinIR's windowed attention (window_attention.cu);
   2. hold each kernel against its plain PyTorch version at its main path's
      shapes: f32 kernels against the plain version in f64 (max relative
      error 1e-4), bf16 ones against it in bf16 (2e-2); C also on its own
@@ -33,7 +34,12 @@ Phases (any failure raises, so the exit code is non-zero):
      the BatchNorm glue's five kernels (ops/bn_act.py) at the DIP shapes
      (512^2, 256^2 and 16^2 at 128 channels, the 512^2 skip branch at 4)
      against their plain versions in f64, the (C,) f32 sums at 1e-4 in
-     both dtypes;
+     both dtypes; the window kernel (ops/window_attention.py) at SwinIR-M's
+     qkv on the benchmark's frame, (1, 272 * 480, 540) with 6 heads of 30,
+     f32 and bf16, unshifted and shifted by 4, against the plain chain in
+     f64 (max relative error and its own part, the worst 8 x 8 window's
+     rms error over the output's rms, both under 1e-4 / 2e-2), one launch
+     a call; head 1's bias zeroed must read above the limit;
   3. DIP: check the whole fused net against the unfused one (in f64) on a
      128^2 input, then drive the main path, ``tpusr_torch.cli.dip.main``,
      at full width (input 32, 128 channels, 5 scales, x8) on a synthetic
@@ -49,7 +55,13 @@ Phases (any failure raises, so the exit code is non-zero):
      inference_mode on a 270 x 480 LR frame (1080 x 1920 out), in f32 and
      bf16: 69 kernel-C and 4 kernel-A launches per frame (the weight units
      of all 69 blocks packed anew in each frame), the frame time (fused and
-     unfused) and a torch.profiler breakdown of one frame;
+     unfused) and a torch.profiler breakdown of one frame; then SwinIR-M
+     x4 (embed 180, 6 x 6 Swin layers, window 8), fused in f32 against
+     unfused in f64 on a 20 x 28 input (reflect pad, shifted masks; TF32
+     off, 1e-4), and the benchmark's swinir entry, ``generator_forward``
+     with ``GANTrainConfig(generator='swinir', factor=4)`` on a 270 x 480
+     frame in f32 and bf16: 36 window-kernel and 3 kernel-A launches a
+     frame, the frame time fused and unfused and a profiled frame;
   5. SRGAN x8 eval: the full-width Generator (16 blocks, 1,697,175
      parameters, seeded weights and running statistics), fused in f32
      against unfused in f64 on a 24 x 40 input, with cuDNN's TF32 off (to
@@ -79,7 +91,11 @@ Phases (any failure raises, so the exit code is non-zero):
      glue's kernels at up0's 512^2 x 128 in f32 and bf16, each beside its
      bytes at 3.35 TB/s, its plain version and, as a yardstick the port
      never calls, F.batch_norm + F.leaky_relu (forward or autograd's
-     backward);
+     backward); the window kernel at SwinIR-M's qkv in f32 and bf16,
+     unshifted and shifted, beside its bytes at 3.35 TB/s, the plain chain
+     and F.scaled_dot_product_attention on windows already cut; kernel A
+     at SwinIR's 180 -> 180 and 180 -> 64 convs against cuDNN with its
+     bias (why those convs stay on cuDNN);
   8. SRGAN training at full width (16 blocks, x8, D at 192^2, batch 8):
      the training G's forward and backward, fused (g_fuse 'train') in f32
      against the unfused net in f64 on the 24^2 patch (output 1e-4,
@@ -542,11 +558,13 @@ def reset_counts():
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
     from tpusr_torch.ops import fused_degrade as fd
+    from tpusr_torch.ops import window_attention as wa
 
     fc.reset_launch_counts()
     db.reset_launch_counts()
     fd.reset_launch_counts()
     bn_act.reset_launch_counts()
+    wa.reset_launch_counts()
 
 
 def read_counts():
@@ -554,8 +572,10 @@ def read_counts():
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
     from tpusr_torch.ops import fused_degrade as fd
+    from tpusr_torch.ops import window_attention as wa
 
-    return {**fc.LAUNCHES, **db.LAUNCHES, **fd.LAUNCHES, **bn_act.LAUNCHES}
+    return {**fc.LAUNCHES, **db.LAUNCHES, **fd.LAUNCHES, **bn_act.LAUNCHES,
+            **wa.LAUNCHES}
 
 
 def run_main_path(cli, root, dtype, num_iter, log_freq):
@@ -904,6 +924,273 @@ def measure(label, kern, plain, lib, flops, nbytes, dtype):
           f"{bms:.4f} ms ({by}{named_txt}), {flops / ms / 1e9:.1f} TFLOP/s")
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bms, bound_by=by, **named)
+
+
+# ------------------------------------------------------------------ SwinIR
+# SwinIR-M's window attention on the benchmark's frame: qkv (1, 272 * 480,
+# 540), 270 rows reflect-padded to whole 8 x 8 windows, 6 heads of 30
+WA_SHAPE = (1, 272, 480, 6, 30)  # B, Hp, Wp, heads, head dimension
+# the window kernel's profiler names: window_attention_kernel<bf16 / float>
+KERNEL_WA = "namespace)::window_attention_kernel"
+# launches of one SwinIR-M x4 frame: the window kernel once a Swin layer
+# (6 RSTBs x 6), kernel A for the tail's three 64 -> 64 convs (the convs at
+# 180 channels, conv_first and conv_last run on cuDNN)
+SWINIR_FRAME = {"window_attention": 36, "fused_conv3x3_fwd": 3}
+
+
+def wa_operands(dtype, gen):
+    """qkv (B, Hp * Wp, 3 heads hd) in dtype and the f32 (225, heads) bias
+    table, N(0, 1) as the benchmark draws its tables, so that a bias left
+    out moves the output."""
+    b, h, w, heads, hd = WA_SHAPE
+    qkv = torch.randn((b, h * w, 3 * heads * hd), generator=gen,
+                      device="cuda").to(dtype)
+    table = torch.randn((15 * 15, heads), generator=gen, device="cuda")
+    return qkv, table
+
+
+def wa_own_part(got, want, hw):
+    """The window kernel's own part: the largest rms of got - want over the
+    image's 8 x 8 windows, over the rms of want (a fault in a few windows,
+    as the mask's, is a small share of the whole image)."""
+    d = got.double() - want.double()
+    b, _, c = d.shape
+    per_px = d.square().mean(-1).view(b, 1, *hw)
+    worst = F.avg_pool2d(per_px, 8).sqrt().max()
+    return float(worst / want.double().square().mean().sqrt())
+
+
+def check_window_attention():
+    """Phase 2, the window kernel (ops/window_attention.py): at WA_SHAPE
+    in f32 and bf16, unshifted and shifted by 4, against the plain chain
+    in f64 on the same values (bf16 values are exact in f64): max |kernel
+    - plain| / max |plain| and the own part (``wa_own_part``) under TOL
+    (f32: 3xTF32 products; bf16: P enters the second product and the
+    output is stored rounded to bf16), one launch a call, read from 0.
+    Then a planted fault, head 1's bias zeroed in the kernel's table and
+    held to the sound chain, must read above TOL in the own part: the
+    benchmark's cell does not see one layer's bias left out, so this
+    check and the card tests guard the bias addressing. Returns the
+    largest f32 absolute error."""
+    from tpusr_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hw, heads = WA_SHAPE[1:3], WA_SHAPE[3]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shift in (0, 4):
+            qkv, table = wa_operands(dtype, gen)
+            want = wa.window_attention_reference(qkv.double(),
+                                                 table.double(), hw, heads,
+                                                 shift)
+            wa.reset_launch_counts()
+            got = wa.window_attention(qkv, table, hw, heads, shift)
+            launches = wa.LAUNCHES["window_attention"]
+            rel, own = rel_err(got, want), wa_own_part(got, want, hw)
+            if dtype == torch.float32:
+                worst = max(worst, abs_err(got, want))
+            zeroed = table.clone()
+            zeroed[:, 1] = 0.0
+            fault = wa_own_part(wa.window_attention(qkv, zeroed, hw, heads,
+                                                    shift), want, hw)
+            print(f"check window_attention {WA_SHAPE} {str(dtype)[6:]} shift "
+                  f"{shift}: rel {rel:.3e}, own part {own:.3e}, "
+                  f"{launches} launch; head 1's bias zeroed: own part "
+                  f"{fault:.3e}")
+            if not (rel < TOL[dtype] and own < TOL[dtype]):
+                raise AssertionError(f"window_attention {dtype} shift "
+                                     f"{shift} disagrees with the plain "
+                                     f"chain: rel {rel}, own {own}")
+            if launches != 1:
+                raise AssertionError(f"window_attention launched {launches} "
+                                     f"times in one call")
+            if not fault > TOL[dtype]:
+                raise AssertionError(f"window_attention {dtype} shift "
+                                     f"{shift}: head 1's bias zeroed reads "
+                                     f"{fault}, under {TOL[dtype]}")
+    return worst
+
+
+def swinir_net(dtype, fusion):
+    """SwinIR-M x4 from seed 0 on the card, through the engine's
+    constructor."""
+    from tpusr_torch.engine.gan import GANTrainConfig, build_generator
+
+    config = GANTrainConfig(generator="swinir", factor=4,
+                            dtype=None if dtype is None else str(dtype)[6:],
+                            conv_fusion=fusion)
+    return build_generator(config, "cuda",
+                           torch.Generator().manual_seed(0)), config
+
+
+def check_swinir_net():
+    """Phase 4c: the full-width SwinIR-M, fused ('auto', f32: the window
+    kernel's 3xTF32 path, kernel A in the tail) against the unfused
+    dataflow ('off': the plain attention chain, every conv on F.conv2d) in
+    f64 from the same weights, TF32 off, on a small LR input whose 20 rows
+    and 28 columns are no whole windows (reflect pad, a ragged last window
+    row, shifted masks). The unfused f32 net's distance is printed for
+    scale."""
+    torch.backends.cudnn.allow_tf32 = False
+    fused, _ = swinir_net(None, "auto")
+    off, _ = swinir_net(None, "off")
+    off.load_state_dict(fused.state_dict())
+    off64, _ = swinir_net(None, "off")
+    off64.load_state_dict(fused.state_dict())
+    off64 = off64.double()
+    lr = torch.rand(1, 3, 20, 28,
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.inference_mode():
+        outs = {"auto": fused(lr), "off": off(lr),
+                "off_f64": off64(lr.double())}
+    if outs["auto"].shape != (1, 3, 80, 112):
+        raise AssertionError(f"SwinIR output {tuple(outs['auto'].shape)}")
+    err = {k: rel_err(outs[k], outs["off_f64"]) for k in ("auto", "off")}
+    print(f"SwinIR-M at 20x28 -> 80x112, against the f64 unfused net: "
+          f"fused f32 {err['auto']:.3e}; unfused f32 {err['off']:.3e}")
+    torch.backends.cudnn.allow_tf32 = True
+    if not err["auto"] <= 1e-4:
+        raise AssertionError("fused SwinIR disagrees with the unfused net")
+
+
+def run_swinir_main_path(dtype, top=12):
+    """Phase 4d: the benchmark's swinir-x4-1080p-bf16 entry on the port,
+    ``generator_forward(train=False)`` with ``GANTrainConfig(generator=
+    'swinir', factor=4)`` on a 270 x 480 LR frame (1080 x 1920 out): one
+    frame with the launch counts read from 0 around it (SWINIR_FRAME), its
+    checks, the frame time fused and unfused (CUDA events, 1 warm-up and
+    3 frames), and one profiled frame, whose window must record all of
+    its window-kernel and kernel-A launches."""
+    from tpusr_torch.engine.gan import generator_forward
+
+    name = "float32" if dtype is None else str(dtype)[6:]
+    lr = torch.from_numpy(np.random.default_rng(0).random(
+        (1, *LR_RRDB, 3))).float().cuda()
+    mpix = 16 * LR_RRDB[0] * LR_RRDB[1] / 1e6
+    net, config = swinir_net(dtype, "auto")
+    net.eval()
+    with torch.inference_mode():
+        reset_counts()
+        y = generator_forward(net, lr, config)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"SwinIR main path {name}: output {tuple(y.shape)} {y.dtype}, "
+              f"launches {counts}")
+        if not (y.shape == (1, 1080, 1920, 3) and y.dtype == torch.float32
+                and bool(torch.isfinite(y).all())):
+            raise AssertionError("SwinIR output is not a finite f32 "
+                                 "(1, 1080, 1920, 3) frame")
+        if any(counts[k] != n for k, n in SWINIR_FRAME.items()) or any(
+                v for k, v in counts.items() if k not in SWINIR_FRAME):
+            raise AssertionError(f"SwinIR main path missed the kernels: "
+                                 f"{counts}")
+        del y
+
+        def frame(m):
+            return generator_forward(m, lr, config)
+
+        ms = time_ms(lambda: frame(net), 3, warmup=1)
+        kernels, busy = profile_window(
+            lambda: frame(net), 1,
+            expect={KERNEL_WA: 36, KERNEL_A: 3})
+        off, _ = swinir_net(dtype, "off")
+        off.load_state_dict(net.state_dict())
+        ms_off = time_ms(lambda: frame(off.eval()), 3, warmup=1)
+        del off
+    groups = {"window kernel": KERNEL_WA, "kernel A": KERNEL_A}
+    split = {g: sum(e.self_device_time_total for e in kernels
+                    if key in e.key) / 1e3 for g, key in groups.items()}
+    split["other device ops"] = busy - sum(split.values())
+    print(f"SwinIR-M x4 frame 270x480 -> 1080x1920, {name}: fusion auto "
+          f"{ms:.3f} ms ({mpix / ms * 1e3:.3f} MPix/s), off (plain "
+          f"attention, cuDNN) {ms_off:.3f} ms ({mpix / ms_off * 1e3:.3f} "
+          f"MPix/s); profiled frame: busy {busy:.3f} ms, idle share "
+          f"{1 - busy / ms:.4f}, {sum(e.count for e in kernels)} device "
+          f"operations; " + ", ".join(f"{g} {v:.3f} ms"
+                                      for g, v in split.items()))
+    print_top(kernels, 1, top, "frame")
+    return counts
+
+
+def time_window_attention():
+    """Phase 7, the window kernel at WA_SHAPE, f32 and bf16, unshifted and
+    shifted: its device time beside its bound (qkv read once, the output
+    written once, the table once, at 3.35 TB/s; the useful operations of
+    q k^T and P v at head dimension 30), the plain chain's time (CUDA
+    events) and, as a yardstick the port never calls,
+    F.scaled_dot_product_attention on windows already cut (the roll and
+    partition not timed), with the bias and mask as its additive mask.
+    The record keeps the unshifted rows; the shifted ones are printed."""
+    from tpusr_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, w, heads, hd = WA_SHAPE
+    hw, nt = (h, w), wa.WINDOW * wa.WINDOW
+    windows = b * h * w // nt
+    flops = 2 * 2 * windows * heads * nt * nt * hd
+    index = wa.relative_position_index(wa.WINDOW, "cuda").view(-1)
+    rows = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, table = wa_operands(dtype, gen)
+            nbytes = qkv.numel() * 4 // 3 * qkv.element_size() \
+                + table.numel() * 4
+            for shift in (0, 4):
+                x = qkv.view(b, h, w, -1)
+                if shift:
+                    x = torch.roll(x, (-shift, -shift), (1, 2))
+                q, k, v = wa.window_partition(x, wa.WINDOW).reshape(
+                    -1, nt, 3, heads, hd).permute(2, 0, 3, 1, 4).contiguous()
+                bias = table[index].view(nt, nt, heads).permute(2, 0, 1)
+                mask = bias[None].expand(windows, -1, -1, -1)
+                if shift:
+                    mask = mask + wa.shifted_window_mask(
+                        hw, wa.WINDOW, shift, "cuda")[:, None]
+                mask = mask.to(dtype).contiguous()
+                row = measure(
+                    f"window_attention at {WA_SHAPE} {str(dtype)[6:]} shift "
+                    f"{shift}",
+                    lambda: wa.window_attention(qkv, table, hw, heads, shift),
+                    lambda: wa.window_attention_reference(qkv, table, hw,
+                                                          heads, shift),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=hd ** -0.5),
+                    flops, nbytes, dtype)
+                if not shift:
+                    row["shape"] = (f"qkv (1, 272 * 480, 540), 6 heads of 30, "
+                                    f"unshifted, {str(dtype)[6:]}")
+                    rows[str(dtype)[6:]] = row
+                del q, k, v, mask
+    return rows
+
+
+def time_swinir_kernel_a():
+    """Phase 7, SwinIR: kernel A at the 180-channel convs of the 272 x 480
+    frame (180 -> 180, 180 -> 64, zero pad, bf16) against one cuDNN conv
+    with its bias, the call the model makes there: why SwinIR's convs at
+    180 channels stay on cuDNN. Printed, not kept in the record."""
+    from tpusr_torch.ops import fused_conv as fc
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, w = WA_SHAPE[1:3]
+    with torch.inference_mode():
+        for cout in (180, 64):
+            x = torch.randn(1, h, w, 180, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            wt = (torch.randn(3, 3, 180, cout, generator=gen,
+                              device="cuda") / 40).to(torch.bfloat16)
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            bias = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
+            measure(f"fused_conv3x3_fwd at SwinIR's (1, {h}, {w}, 180) -> "
+                    f"{cout}, zero pad, bfloat16 (library: cuDNN with bias)",
+                    lambda: fc.fused_conv3x3_fwd(x, wt, reflect=False),
+                    lambda: fc.fused_conv3x3_fwd_reference(x, wt,
+                                                           reflect=False),
+                    lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias,
+                                     padding=1),
+                    2 * 9 * 180 * cout * h * w,
+                    (x.numel() + h * w * cout + wt.numel())
+                    * x.element_size(), torch.bfloat16)
 
 
 # ------------------------------------------------------------------ SRGAN
@@ -3347,6 +3634,7 @@ def main() -> int:
                                        dp_worst["fused_conv3x3_wgrad"])
     worst.update(check_degrade_kernels())
     worst.update(check_bn_act_kernels())
+    worst["window_attention"] = check_window_attention()
     print(f"phase 2: kernels agree with their plain versions; largest f32 "
           f"abs errors {worst}")
 
@@ -3366,6 +3654,12 @@ def main() -> int:
         name = "float32" if dtype is None else "bfloat16"
         paths[f"rrdb {name}"] = run_rrdb_main_path(dtype)
     print("phase 4: RRDB main path ran through the kernels")
+    check_swinir_net()
+    for dtype in (None, torch.bfloat16):
+        name = "float32" if dtype is None else "bfloat16"
+        paths[f"swinir {name}"] = run_swinir_main_path(dtype)
+    print("phase 4: SwinIR main path ran through the window kernel and "
+          "kernel A")
 
     check_generator_net()
     with tempfile.TemporaryDirectory() as root:
@@ -3408,9 +3702,14 @@ def main() -> int:
         timed[k] = dict(rows["float32"], bfloat16=rows["bfloat16"])
     timed["partials_sum"] = {"shape": "timed inside channel_moments and "
                                       "affine_act_grad"}
+    wa_timed = time_window_attention()
+    timed["window_attention"] = dict(wa_timed["float32"],
+                                     bfloat16=wa_timed["bfloat16"])
+    time_swinir_kernel_a()
     print("phase 7: timed (the record below is at up0_conv, 512^2, for A "
           "and B, at (1, 270, 480, 64) for C, at the DIV2K HR frame for D "
-          "and E, at up0's (1, 512, 512, 128) for the BatchNorm glue)")
+          "and E, at up0's (1, 512, 512, 128) for the BatchNorm glue, at "
+          "SwinIR-M's qkv (1, 272 * 480, 540) for the window kernel)")
 
     import dataclasses
     from tpusr_torch.engine.gan import GANTrainConfig
@@ -3467,13 +3766,15 @@ def main() -> int:
                 "fused_add_gaussian_noise": "tpusr/ops/pallas_degrade.py:38",
                 "fused_add_salt_pepper_noise":
                     "tpusr/ops/pallas_degrade.py:52",
-                **{k: "none: XLA fuses tpusr's BatchNorm glue" for k in BN_ACT}}
+                **{k: "none: XLA fuses tpusr's BatchNorm glue" for k in BN_ACT},
+                "window_attention": "none: tpusr has no transformer"}
     sources = {"fused_conv3x3_fwd": "tpusr_torch/csrc/fused_conv3x3.cu",
                "fused_conv3x3_wgrad": "tpusr_torch/csrc/fused_conv3x3.cu",
                "dense_block": "tpusr_torch/csrc/dense_block.cu",
                "fused_add_gaussian_noise": "tpusr_torch/csrc/degrade.cu",
                "fused_add_salt_pepper_noise": "tpusr_torch/csrc/degrade.cu",
-               **{k: "tpusr_torch/csrc/bn_act.cu" for k in BN_ACT}}
+               **{k: "tpusr_torch/csrc/bn_act.cu" for k in BN_ACT},
+               "window_attention": "tpusr_torch/csrc/window_attention.cu"}
     designs = {
         "fused_conv3x3_fwd": "wgmma bf16 (m64nNk16, N 64/128, 16x16-pixel "
                              "tile, 9 taps as descriptors into one staged "
@@ -3497,7 +3798,14 @@ def main() -> int:
                                        "thread per pixel",
         **{k: "one pass over NHWC, a thread owning 16 bytes of channels for "
               "the launch, UNROLL pixels in flight; block partials in a fixed "
-              "tree, summed by partials_sum" for k in BN_ACT}}
+              "tree, summed by partials_sum" for k in BN_ACT},
+        "window_attention": "one block a window: mma.sync m16n8k16 bf16 (P "
+                            "kept in registers) / 3xTF32 m16n8k8 f32 (P "
+                            "through shared memory), head dimension padded "
+                            "to 32, softmax in f32 registers; the cyclic "
+                            "shift, the relative-position bias and the "
+                            "shifted-window mask in its addressing, tokens "
+                            "read and written in image order"}
     record = {"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
              design=designs[k],

@@ -6,7 +6,7 @@ Usage (flags mirror the JAX CLI, itself eval_GAN.py:122-134, plus
         --model_path G.pth [--save_images True] [--num_images -1] \
         [--noise_type gauss --noise_param 0.05] [--factor 8] \
         [--residual_blocks 16] [--dtype float32|bfloat16] [--device cuda]
-        [--generator srgan|rrdb]
+        [--generator srgan|rrdb|swinir]
 
 Loads a reference-named generator .pth or the ``params_G`` / ``stats_G``
 of an orbax state directory (tpusr's or the port's ``{prefix}_state`` or
@@ -30,18 +30,21 @@ a .pth in ESRGAN's or BasicSR / Real-ESRGAN's names (``params_ema`` /
 ``params`` unwrapped), its block count read from the file, LR from
 ``DIV2K_valid_LR_x{factor}/<name>x{factor}.png``. Its output in [0, 1]
 is mapped to [-1, 1] (2y - 1) for the metrics and the PNG, and clamped
-for the PNG only. --tiles and --spatial_shards are SRGAN's alone: their
-halo covers SRGAN's receptive field.
+for the PNG only. --generator swinir runs SwinIR (real-world SR, the
+nearest+conv upsampler; --factor 4 for SwinIR-M x4) from a .pth in the
+published ``network_swinir.py`` names (``params_ema`` / ``params``
+unwrapped), its widths read from the file, LR and output as RRDBNet's.
+--tiles and --spatial_shards are SRGAN's alone: their halo covers SRGAN's
+receptive field. What the CLI reads of a model (its output range, its LR
+set, whether it tiles) are attributes of its class.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 import time
-import warnings
 
 import torch
 
@@ -50,77 +53,28 @@ from tpusr_torch.cli.common import (check_num_images, join_ranks,
                                     str2bool, timestamp, validate_noise)
 from tpusr_torch.data.div2k import GANDIV2KDataset
 from tpusr_torch.device import resolve_device
-from tpusr_torch.engine.gan import (GANTrainConfig, build_generator,
-                                    generator_forward)
+from tpusr_torch.engine.gan import (GENERATORS, GANTrainConfig,
+                                    generator_class, generator_forward,
+                                    torch_dtype)
 from tpusr_torch.engine.metrics import psnr as psnr_fn
 from tpusr_torch.engine.metrics import ssim as ssim_fn
-from tpusr_torch.io.checkpoint import (import_esrgan_rrdbnet,
-                                       import_torch_generator,
-                                       infer_generator_arch, infer_rrdb_arch,
-                                       load_torch_state_dict)
 from tpusr_torch.io.images import save_image, to_uint8
 from tpusr_torch.io.logs import save_log
-from tpusr_torch.io.orbax import read_tree
-from tpusr_torch.io.weights import load_flax_generator
 from tpusr_torch.models.lpips import make_lpips
-from tpusr_torch.models.srgan import N_SHUFFLES
 from tpusr_torch.parallel.mesh import make_mesh
 from tpusr_torch.parallel.spatial import (sharded_generator_forward,
                                           tiled_generator_forward)
 
 
 def load_generator(model_path: str, config: GANTrainConfig, device="cuda"):
-    """A reference-named torch .pth (DDP prefixes stripped) or an orbax
-    state directory (its ``params_G`` and ``stats_G``, as tpusr reads it)
-    -> (Generator on ``device``, config).
-
-    config's residual_blocks_count is corrected to what the checkpoint
-    holds, with a warning; a pixel-shuffle count that does not fit
-    config.factor raises with the factor the model was trained for.
-    """
-    if config.generator == "rrdb":
-        return _load_rrdbnet(model_path, config, device)
-    n_shuffles = N_SHUFFLES[config.factor]
-    if model_path.endswith(".pth"):
-        sd = load_torch_state_dict(model_path)
-        rb, ns = infer_generator_arch(sd)
-    else:
-        state = read_tree(model_path)
-        rb, ns = infer_generator_arch(state["params_G"])
-    if ns != n_shuffles:
-        ckpt_factor = {v: k for k, v in N_SHUFFLES.items()}[ns]
-        raise ValueError(
-            f"{model_path} holds a x{ckpt_factor} generator ({ns} pixel-"
-            f"shuffle blocks) but --factor/--downsample request "
-            f"x{config.factor} ({n_shuffles}); rerun with the factor the "
-            f"model was trained for")
-    if rb != config.residual_blocks_count:
-        warnings.warn(
-            f"checkpoint has {rb} residual blocks; overriding "
-            f"--residual_blocks {config.residual_blocks_count}")
-        config = dataclasses.replace(config, residual_blocks_count=rb)
-    generator = build_generator(config, device)
-    if model_path.endswith(".pth"):
-        generator.load_state_dict(import_torch_generator(
-            sd, residual_blocks_count=rb, n_shuffles=ns))
-    else:
-        load_flax_generator(generator, state["params_G"], state["stats_G"])
-    return generator, config
-
-
-def _load_rrdbnet(model_path: str, config: GANTrainConfig, device):
-    """A published RRDBNet .pth -> (RRDBNet on ``device``, config with
-    its block count); a x2-stage count that does not fit config.factor
-    raises."""
-    sd = load_torch_state_dict(model_path)
-    nb, n_up = infer_rrdb_arch(sd)
-    if 2 ** n_up != config.factor:
-        raise ValueError(f"{model_path} holds a x{2 ** n_up} RRDBNet but "
-                         f"--factor/--downsample request x{config.factor}")
-    config = dataclasses.replace(config, rrdb_blocks=nb)
-    generator = build_generator(config, device)
-    generator.load_state_dict(import_esrgan_rrdbnet(sd, nb, n_up))
-    return generator, config
+    """The checkpoint at ``model_path`` -> (the generator ``config.generator``
+    names, on ``device``, with its weights; config as the file corrects
+    it): the class's own ``load`` (SRGAN's Generator: a reference-named
+    .pth or an orbax state directory, its residual-block count taken from
+    the file with a warning; RRDBNet and SwinIR: a published .pth, their
+    widths taken from the file). A factor the file does not fit raises."""
+    return generator_class(config).load(model_path, config,
+                                        torch_dtype(config), device)
 
 
 def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
@@ -153,7 +107,7 @@ def evaluate(generator, dataset, out_dir, config: GANTrainConfig,
             else:
                 resolved = generator_forward(generator, lr_dev, config,
                                              train=False)
-            if config.generator == "rrdb":  # [0, 1] -> the metrics' [-1, 1]
+            if generator.output_range == (0.0, 1.0):  # the metrics' [-1, 1]
                 resolved = resolved * 2.0 - 1.0
             running["psnr"] += float(psnr_fn(resolved, hr_dev))
             running["ssim"] += float(ssim_fn(resolved, hr_dev,
@@ -193,9 +147,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "into this many row tiles, one batched forward "
                              "(SRGAN only)")
     parser.add_argument("--generator", type=str, default="srgan",
-                        choices=("srgan", "rrdb"),
-                        help="srgan (default) or rrdb: ESRGAN's RRDBNet from "
-                             "a .pth in ESRGAN's or BasicSR's names, LR "
+                        choices=tuple(GENERATORS),
+                        help="srgan (default), rrdb (ESRGAN's RRDBNet from "
+                             "a .pth in ESRGAN's or BasicSR's names) or "
+                             "swinir (SwinIR, real-world SR, from a .pth in "
+                             "the published names); the last two read LR "
                              "from DIV2K_valid_LR_x{factor}")
     parser.add_argument("--residual_blocks", type=int, default=16)
     parser.add_argument("--legacy_scale", type=str2bool, default=False,
@@ -217,8 +173,8 @@ def run(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.generator == "rrdb" and (args.tiles > 1
-                                     or args.spatial_shards > 1):
+    if not GENERATORS[args.generator].tiles and (args.tiles > 1
+                                                 or args.spatial_shards > 1):
         parser.error("--tiles and --spatial_shards take --generator srgan "
                      "only: their halo covers SRGAN's receptive field")
     n = args.spatial_shards
@@ -247,8 +203,7 @@ def _evaluate_cli(args):
     factor = args.factor
     if args.downsample:
         factor *= 2
-    # SRGAN reads the reference's x8 set whatever the factor
-    lr_tag = f"x{args.factor}" if args.generator == "rrdb" else "x8"
+    lr_tag = GENERATORS[args.generator].lr_tag(args.factor)
     LR_dir = os.path.join(args.data_dir, f"DIV2K_valid_LR_{lr_tag}/")
     HR_dir = os.path.join(args.data_dir, "DIV2K_valid_HR/")
 

@@ -1,7 +1,13 @@
 """SRGAN engine: the configuration, the alternating D/G training step and
 the generator's eval forward, which also runs ESRGAN's RRDBNet
-(``generator='rrdb'``: eval only, no BatchNorm, input in [0, 1], raw
-unbounded output).
+(``generator='rrdb'``) and SwinIR (``generator='swinir'``): eval only, no
+BatchNorm, input in [0, 1], raw unbounded output. What the engine and the
+eval CLI need to know of a model (its output range, whether it only
+evaluates, whether the spatial paths take it, its DIV2K LR set) are
+attributes of its class (``output_range``, ``eval_only``, ``tiles``,
+``lr_tag``), as are how a config builds it (``from_config``) and how a
+checkpoint loads it (``load``); the name picks the class in
+``GENERATORS`` alone.
 
 Counterpart of ``tpusr/engine/gan.py`` (reference train_GAN.py:22-136,
 eval_GAN.py:21-69). ``GANTrainConfig`` carries every field and default of
@@ -37,6 +43,7 @@ import torch
 from tpusr_torch.engine import losses as L
 from tpusr_torch.models.rrdb import RRDBNet
 from tpusr_torch.models.srgan import Discriminator, Generator
+from tpusr_torch.models.swinir import SwinIR
 from tpusr_torch.utils.profiling import span
 
 # Defaults seeded from the environment once, at import, as tpusr does
@@ -74,12 +81,14 @@ class GANTrainConfig:
     d_moments: str = _D_MOMENTS_DEFAULT  # 'bf16' | 'f32'
     d_params: str = _D_PARAMS_DEFAULT  # 'f32' | 'bf16'
     # 'srgan' | 'rrdb': ESRGAN's RRDBNet at nf 64 / gc 32 (the widths kernel
-    # C takes and the published model has), rrdb_blocks RRDBs; eval only
+    # C takes and the published model has), rrdb_blocks RRDBs; eval only |
+    # 'swinir': SwinIR-M with the nearest+conv upsampler (real-world SR) at
+    # its published widths; eval only
     generator: str = "srgan"
     rrdb_blocks: int = 23
 
 
-GENERATORS = ("srgan", "rrdb")
+GENERATORS = {"srgan": Generator, "rrdb": RRDBNet, "swinir": SwinIR}
 
 
 def torch_dtype(config: GANTrainConfig) -> torch.dtype | None:
@@ -97,29 +106,26 @@ def _check_fusion(config: GANTrainConfig) -> None:
                          f"auto/off")
 
 
-def _check_generator(config: GANTrainConfig) -> None:
+def generator_class(config: GANTrainConfig) -> type:
+    """The model class ``config.generator`` names."""
     if config.generator not in GENERATORS:
         raise ValueError(f"generator {config.generator!r} not in "
                          f"{'/'.join(GENERATORS)}")
+    return GENERATORS[config.generator]
 
 
 def build_generator(config: GANTrainConfig, device="cuda",
-                    generator: torch.Generator | None = None
-                    ) -> Generator | RRDBNet:
+                    generator: torch.Generator | None = None, **arch
+                    ) -> Generator | RRDBNet | SwinIR:
     """The generator ``config`` describes, on ``device``: SRGAN's
-    Generator, or ESRGAN's RRDBNet (×``factor``, ``rrdb_blocks`` RRDBs)."""
-    _check_generator(config)
-    if config.generator == "rrdb":
-        return RRDBNet(scale=config.factor, nb=config.rrdb_blocks,
-                       dtype=torch_dtype(config), fusion=config.conv_fusion,
-                       device=device, generator=generator)
-    return Generator(factor=config.factor,
-                     residual_blocks_count=config.residual_blocks_count,
-                     dtype=torch_dtype(config), device=device,
-                     generator=generator)
+    Generator, ESRGAN's RRDBNet (×``factor``, ``rrdb_blocks`` RRDBs) or
+    SwinIR-M (×``factor``). ``arch`` overrides the class's other
+    constructor arguments (a checkpoint's widths)."""
+    return generator_class(config).from_config(
+        config, torch_dtype(config), device, generator, **arch)
 
 
-def generator_forward(generator: Generator | RRDBNet,
+def generator_forward(generator: Generator | RRDBNet | SwinIR,
                       lr_images: torch.Tensor, config: GANTrainConfig,
                       train: bool = False) -> torch.Tensor:
     """Full-image generator inference (eval_GAN.py:44) over NHWC images.
@@ -135,16 +141,17 @@ def generator_forward(generator: Generator | RRDBNet,
     TF32 by default, as XLA's default precision rounds the reference's f32
     convs on the TPU (to bf16 there). Returns NHWC f32 in [-1, 1].
 
-    ``config.generator == 'rrdb'``: the RRDBNet's forward on NHWC in [0, 1]
-    (its fusion fixed when it was built), NHWC f32 out, raw as published
-    (ESRGAN clamps only to write an image); ``train=True`` raises.
+    An ``eval_only`` generator (RRDBNet, SwinIR): its forward on NHWC in
+    [0, 1] (its fusion fixed when it was built), NHWC f32 out, raw as
+    published (ESRGAN and SwinIR clamp only to write an image);
+    ``train=True`` raises.
     """
     _check_fusion(config)
-    _check_generator(config)
-    if config.generator == "rrdb":
+    generator_class(config)
+    if generator.eval_only:
         if train:
-            raise ValueError("generator 'rrdb' runs eval only: no RRDB "
-                             "training")
+            raise ValueError(f"generator {config.generator!r} runs eval "
+                             f"only: no training")
         with span("gan.generator_forward"):
             return generator(lr_images.permute(0, 3, 1, 2)).permute(
                 0, 2, 3, 1)
@@ -272,7 +279,7 @@ def create_gan_state(config: GANTrainConfig, learning_rate: float,
     """Build the nets (or adopt G and D, as a new phase does) with fresh
     Adam optimizers and step 0 (train_GAN.py:35-36). New nets draw their
     init from ``generator``, G first."""
-    if config.generator != "srgan":
+    if generator_class(config).eval_only:
         raise ValueError(f"generator {config.generator!r} has no training "
                          f"state: only 'srgan' trains")
     if config.d_params == "bf16" and config.d_moments != "bf16":

@@ -24,6 +24,11 @@ the names of ESRGAN's ``RRDBNet_arch.py`` or of BasicSR / Real-ESRGAN's
 kernels are HWIO ``rrdb{i}.rdb{j}.conv{k}_kernel`` (the layout kernel C
 reads) and whose other convs keep OIHW.
 
+SwinIR (``import_swinir``, eval only): a state dict of the published
+``network_swinir.py`` maps onto the port's ``SwinIR`` under the same names;
+its ``relative_position_index`` and ``attn_mask`` buffers are dropped
+(``infer_swinir_arch`` reads the widths from the shapes).
+
 The full training state (both nets, both Adam states, the step) is an
 orbax checkpoint directory in tpusr's tree (``save_train_state``: its
 ``GANTrainState`` as ``io.weights.export_flax_gan_state`` builds it,
@@ -44,6 +49,8 @@ from tpusr_torch.engine.gan import set_adam_moments
 from tpusr_torch.io.orbax import cast_like, read_tree, write_tree
 from tpusr_torch.io.weights import export_flax_gan_state, load_flax_gan_state
 from tpusr_torch.models.srgan import D_SCHEDULE, disc_feature_hw
+from tpusr_torch.ops.window_attention import (WINDOW, relative_position_index,
+                                              shifted_window_mask)
 
 _CONV = ("weight", "bias")
 _BN = ("weight", "bias", "running_mean", "running_var")
@@ -230,6 +237,70 @@ def import_esrgan_rrdbnet(sd: dict, nb: int, n_up: int = 2) -> dict:
     for ref, port, hwio in pairs:
         t = torch.as_tensor(sd[ref]).to(torch.float32)
         out[port] = t.permute(2, 3, 1, 0).contiguous() if hwio else t
+    return out
+
+
+# SwinIR's published buffers, which the port recomputes from the shapes
+_SWINIR_BUFFERS = ("attn_mask", "relative_position_index")
+_SWINIR_BLOCK = re.compile(r"layers\.(\d+)\.residual_group\.blocks\.(\d+)\.")
+
+
+def infer_swinir_arch(sd: dict) -> dict:
+    """SwinIR's constructor arguments (``upscale``, ``in_chans``,
+    ``embed_dim``, ``depths``, ``num_heads``, ``mlp_ratio``, ``num_feat``)
+    read from a published state dict with the nearest+conv upsampler and
+    the '1conv' residual connection (``params_ema`` / ``params``
+    unwrapped); ValueError on any other state dict or a window other than
+    the kernel's 8."""
+    sd = _unwrap_params(sd)
+    blocks: dict[int, set] = {}
+    for k in sd:
+        m = _SWINIR_BLOCK.match(k)
+        if m:
+            blocks.setdefault(int(m[1]), set()).add(int(m[2]))
+    if not blocks or "conv_first.weight" not in sd \
+            or "conv_up1.weight" not in sd or "layers.0.conv.weight" not in sd:
+        raise ValueError(f"not a SwinIR state dict with the nearest+conv "
+                         f"upsampler and a 1conv residual connection (among "
+                         f"{sorted(sd)[:8]}...)")
+    groups = range(max(blocks) + 1)
+    tables = [sd[f"layers.{i}.residual_group.blocks.0.attn."
+                 f"relative_position_bias_table"] for i in groups]
+    if any(t.shape[0] != (2 * WINDOW - 1) ** 2 for t in tables):
+        raise ValueError(f"SwinIR state dict of another window than "
+                         f"{WINDOW}: bias tables of {tables[0].shape[0]} rows")
+    embed, in_chans = sd["conv_first.weight"].shape[:2]
+    hidden = sd["layers.0.residual_group.blocks.0.mlp.fc1.weight"].shape[0]
+    return {"upscale": 4 if "conv_up2.weight" in sd else 2,
+            "in_chans": in_chans, "embed_dim": embed,
+            "depths": tuple(max(blocks[i]) + 1 for i in groups),
+            "num_heads": tuple(t.shape[1] for t in tables),
+            "mlp_ratio": hidden / embed,
+            "num_feat": sd["conv_before_upsample.0.weight"].shape[0]}
+
+
+def import_swinir(sd: dict) -> dict:
+    """A published SwinIR state dict (bare or under ``params_ema`` /
+    ``params``) -> the port's ``SwinIR`` state dict (f32, the same names),
+    for ``load_state_dict``. Its ``relative_position_index`` and
+    ``attn_mask`` buffers are dropped: the port computes both from the
+    shapes (the window kernel in its addressing), and each buffer the file
+    carries is held to that recomputation (ValueError if it differs)."""
+    sd = _unwrap_params(sd)
+    out = {}
+    for k, v in sd.items():
+        leaf = k.rsplit(".", 1)[-1]
+        if leaf not in _SWINIR_BUFFERS:
+            out[k] = torch.as_tensor(v).to(torch.float32)
+        elif leaf == "relative_position_index":
+            if not torch.equal(v.cpu().long(), relative_position_index()):
+                raise ValueError(f"{k} is not the published index")
+        else:  # the mask at the image size the model was built for
+            side = round(v.shape[0] ** 0.5) * WINDOW
+            want = shifted_window_mask((side, side), WINDOW, WINDOW // 2)
+            if not torch.equal(v.cpu().float(), want):
+                raise ValueError(f"{k} is not the published shifted-window "
+                                 f"mask")
     return out
 
 

@@ -35,6 +35,7 @@ from torch import nn
 from tpusr_torch.ops.bn_act import (affine_act, channel_moments,
                                     channel_moments_reference)
 from tpusr_torch.ops.fused_conv import fused_conv3x3
+from tpusr_torch.utils.profiling import span
 
 # The conv-fusion default, read once at import as tpusr reads it
 # (tpusr/models/layers.py:79-85): every 'auto' fusion field defers to it,
@@ -487,6 +488,22 @@ class Dense(nn.Module):
 def leaky_relu(x, negative_slope: float = 0.2):
     """LeakyReLU in x's dtype."""
     return F.leaky_relu(x, negative_slope)
+
+
+def nearest_conv_tail(fea, upconvs: Sequence[nn.Module], conv_hr: nn.Module,
+                      conv_last: nn.Module, span_name: str) -> torch.Tensor:
+    """The nearest+conv tail that ESRGAN's RRDBNet and SwinIR share: per x2
+    octave [nearest x2, conv ``upconvs[i]``, LeakyReLU 0.2], inside the
+    span ``span_name`` (field ``octaves``); then LeakyReLU 0.2 after
+    ``conv_hr`` and ``conv_last``, returned in f32. Each stage drops its
+    input before its conv runs; callers drop their other large tensors
+    before the call, so that the tail's peak holds no more than it needs."""
+    with span(span_name, octaves=len(upconvs)):
+        for conv in upconvs:
+            fea = F.interpolate(fea, scale_factor=2, mode="nearest")
+            fea = leaky_relu(conv(fea))
+    fea = leaky_relu(conv_hr(fea))
+    return conv_last(fea).float()
 
 
 def pixel_shuffle(x, r: int):

@@ -31,13 +31,16 @@ stages), each inside the forward.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tpusr_torch.device import resolve_device
 from tpusr_torch.models.layers import (Conv, _nchw, _nhwc, _uniform,
-                                      activation, fusion_mode)
+                                      activation, fusion_mode,
+                                      nearest_conv_tail)
 from tpusr_torch.ops.dense_block import dense_block, packed_weights
 from tpusr_torch.ops.fused_conv import fused_conv3x3
 from tpusr_torch.utils.profiling import span
@@ -127,6 +130,45 @@ class RRDBNet(nn.Module):
     from ``generator``.
     """
 
+    # what the engine and the CLI read of the model
+    output_range = (0.0, 1.0)
+    eval_only = True
+    tiles = False  # the spatial paths' halo is SRGAN's
+
+    @staticmethod
+    def lr_tag(factor: int) -> str:
+        return f"x{factor}"
+
+    @classmethod
+    def from_config(cls, config, dtype=None, device="cuda", generator=None,
+                    **arch):
+        """The net a ``GANTrainConfig`` describes (``factor``,
+        ``rrdb_blocks``, ``conv_fusion``); ``arch`` overrides the other
+        constructor arguments."""
+        return cls(scale=config.factor, nb=config.rrdb_blocks,
+                   fusion=config.conv_fusion, dtype=dtype, device=device,
+                   generator=generator, **arch)
+
+    @classmethod
+    def load(cls, path: str, config, dtype=None, device="cuda"):
+        """A published RRDBNet .pth (ESRGAN's or BasicSR's names) -> (the
+        net on ``device``, config with the file's block count); a x2-stage
+        count that does not fit config.factor raises."""
+        from tpusr_torch.io.checkpoint import (import_esrgan_rrdbnet,
+                                               infer_rrdb_arch,
+                                               load_torch_state_dict)
+
+        sd = load_torch_state_dict(path)
+        nb, n_up = infer_rrdb_arch(sd)
+        if 2 ** n_up != config.factor:
+            raise ValueError(f"{path} holds a x{2 ** n_up} RRDBNet but "
+                             f"--factor/--downsample request "
+                             f"x{config.factor}")
+        config = dataclasses.replace(config, rrdb_blocks=nb)
+        net = cls.from_config(config, dtype, device)
+        net.load_state_dict(import_esrgan_rrdbnet(sd, nb, n_up))
+        return net, config
+
     def __init__(self, out_channels: int = 3, nf: int = 64, nb: int = 23,
                  gc: int = 32, scale: int = 4,
                  dtype: torch.dtype | None = None, fusion: str = "auto",
@@ -180,9 +222,7 @@ class RRDBNet(nn.Module):
                 trunk = getattr(self, f"rrdb{i}")(
                     trunk, None if packed is None else packed[i])
         fea = fea + self.trunk_conv(trunk)
-        with span("rrdb.upsample", octaves=self.n_up):
-            for i in range(1, self.n_up + 1):
-                fea = F.interpolate(fea, scale_factor=2, mode="nearest")
-                fea = _lrelu(getattr(self, f"upconv{i}")(fea))
-        fea = _lrelu(self.conv_hr(fea))
-        return self.conv_last(fea).float()
+        del trunk  # the tail holds the sum in its place, as before
+        return nearest_conv_tail(
+            fea, [getattr(self, f"upconv{i}") for i in range(1, self.n_up + 1)],
+            self.conv_hr, self.conv_last, "rrdb.upsample")

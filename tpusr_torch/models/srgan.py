@@ -28,6 +28,9 @@ at .pth import and export (``io/checkpoint.py``).
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
+
 import torch
 from torch import nn
 
@@ -87,6 +90,68 @@ class Generator(nn.Module):
     U(+-1/sqrt(fan_in)) from ``generator``; BN scale 1, bias 0, running
     mean 0, var 1; PReLU slopes 0.25.
     """
+
+    # what the engine and the CLI read of the model
+    output_range = (-1.0, 1.0)
+    eval_only = False
+    tiles = True  # spatial tiling and sharding: the halo is this net's
+
+    @staticmethod
+    def lr_tag(factor: int) -> str:
+        """The DIV2K LR set the eval CLI reads: the reference's x8 set
+        whatever the factor."""
+        return "x8"
+
+    @classmethod
+    def from_config(cls, config, dtype=None, device="cuda", generator=None,
+                    **arch):
+        """The net a ``GANTrainConfig`` describes (``factor``,
+        ``residual_blocks_count``); ``arch`` overrides the other
+        constructor arguments."""
+        return cls(factor=config.factor,
+                   residual_blocks_count=config.residual_blocks_count,
+                   dtype=dtype, device=device, generator=generator, **arch)
+
+    @classmethod
+    def load(cls, path: str, config, dtype=None, device="cuda"):
+        """A reference-named torch .pth (DDP prefixes stripped) or an orbax
+        state directory (its ``params_G`` and ``stats_G``, as tpusr reads
+        it) -> (the net on ``device``, config). config's
+        residual_blocks_count is corrected to what the checkpoint holds,
+        with a warning; a pixel-shuffle count that does not fit
+        config.factor raises with the factor the model was trained for."""
+        from tpusr_torch.io.checkpoint import (import_torch_generator,
+                                               infer_generator_arch,
+                                               load_torch_state_dict)
+        from tpusr_torch.io.orbax import read_tree
+        from tpusr_torch.io.weights import load_flax_generator
+
+        n_shuffles = N_SHUFFLES[config.factor]
+        if path.endswith(".pth"):
+            sd = load_torch_state_dict(path)
+            rb, ns = infer_generator_arch(sd)
+        else:
+            state = read_tree(path)
+            rb, ns = infer_generator_arch(state["params_G"])
+        if ns != n_shuffles:
+            ckpt_factor = {v: k for k, v in N_SHUFFLES.items()}[ns]
+            raise ValueError(
+                f"{path} holds a x{ckpt_factor} generator ({ns} pixel-"
+                f"shuffle blocks) but --factor/--downsample request "
+                f"x{config.factor} ({n_shuffles}); rerun with the factor "
+                f"the model was trained for")
+        if rb != config.residual_blocks_count:
+            warnings.warn(
+                f"checkpoint has {rb} residual blocks; overriding "
+                f"--residual_blocks {config.residual_blocks_count}")
+            config = dataclasses.replace(config, residual_blocks_count=rb)
+        net = cls.from_config(config, dtype, device)
+        if path.endswith(".pth"):
+            net.load_state_dict(import_torch_generator(
+                sd, residual_blocks_count=rb, n_shuffles=ns))
+        else:
+            load_flax_generator(net, state["params_G"], state["stats_G"])
+        return net, config
 
     def __init__(self, factor: int = 8, residual_blocks_count: int = 16,
                  dtype: torch.dtype | None = None,

@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_conv3x3.cu", "dense_block.cu", "degrade.cu", "bn_act.cu")
+SOURCES = ("fused_conv3x3.cu", "dense_block.cu", "degrade.cu", "bn_act.cu",
+           "window_attention.cu")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -23,7 +23,8 @@ Port of ``tpusr/parallel/spatial.py``:
     warned); a halo above the slab is clamped to it (warned).
 
 Both take SRGAN's generator alone: ``generator_receptive_halo`` is SRGAN's,
-and a config with ``generator='rrdb'`` raises ValueError.
+and a config of a generator class without ``tiles`` (RRDBNet; SwinIR, whose
+tiles would also have to be window-aligned) raises ValueError.
 """
 
 from __future__ import annotations
@@ -33,14 +34,15 @@ import warnings
 import torch
 import torch.distributed as dist
 
-from tpusr_torch.engine.gan import GANTrainConfig, generator_forward
+from tpusr_torch.engine.gan import (GANTrainConfig, generator_class,
+                                    generator_forward)
 from tpusr_torch.parallel.mesh import all_gather, axis_of, exchange, make_mesh
 
 
 def generator_receptive_halo(config: GANTrainConfig) -> int:
     """LR-domain halo covering the SRGAN generator's pre-upsample receptive
     field, padded; ValueError for any other generator."""
-    if config.generator != "srgan":
+    if not generator_class(config).tiles:
         raise ValueError(f"spatial tiling and sharding take the SRGAN "
                          f"generator only (its halo is SRGAN's), not "
                          f"{config.generator!r}")
