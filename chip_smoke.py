@@ -10,7 +10,8 @@ Phases (any failure raises, so the exit code is non-zero):
   1. build the CUDA kernels from tpusr_torch/csrc (one nvcc per source, in
      parallel, sm_90a): A and B (fused_conv3x3.cu), C (dense_block.cu),
      D and E (degrade.cu), the skip net's BatchNorm glue (bn_act.cu),
-     SwinIR's windowed attention (window_attention.cu);
+     SwinIR's windowed attention (window_attention.cu) and token linears
+     (token_gemm.cu);
   2. hold each kernel against its plain PyTorch version at its main path's
      shapes: f32 kernels against the plain version in f64 (max relative
      error 1e-4), bf16 ones against it in bf16 (2e-2); C also on its own
@@ -39,7 +40,13 @@ Phases (any failure raises, so the exit code is non-zero):
      f32 and bf16, unshifted and shifted by 4, against the plain chain in
      f64 (max relative error and its own part, the worst 8 x 8 window's
      rms error over the output's rms, both under 1e-4 / 2e-2), one launch
-     a call; head 1's bias zeroed must read above the limit;
+     a call; head 1's bias zeroed must read above the limit; the token
+     GEMM (ops/token_gemm.py) at SwinIR-M's four products (qkv 180 -> 540,
+     proj 180 -> 180 + residual, fc1 180 -> 360 + GELU, fc2 360 -> 180 +
+     residual) on the frame's 130,560 tokens and on 1,919, bf16, against
+     the plain chain in f64 (max relative error under 1e-2, rms relative
+     error under 5e-3), one launch a call; K's tail dropped must read
+     above both;
   3. DIP: check the whole fused net against the unfused one (in f64) on a
      128^2 input, then drive the main path, ``tpusr_torch.cli.dip.main``,
      at full width (input 32, 128 channels, 5 scales, x8) on a synthetic
@@ -61,7 +68,8 @@ Phases (any failure raises, so the exit code is non-zero):
      off, 1e-4), and the benchmark's swinir entry, ``generator_forward``
      with ``GANTrainConfig(generator='swinir', factor=4)`` on a 270 x 480
      frame in f32 and bf16: 36 window-kernel and 3 kernel-A launches a
-     frame, the frame time fused and unfused and a profiled frame;
+     frame, and in bf16 144 token-GEMM launches (none in f32), the frame
+     time fused and unfused and a profiled frame;
   5. SRGAN x8 eval: the full-width Generator (16 blocks, 1,697,175
      parameters, seeded weights and running statistics), fused in f32
      against unfused in f64 on a 24 x 40 input, with cuDNN's TF32 off (to
@@ -95,7 +103,9 @@ Phases (any failure raises, so the exit code is non-zero):
      unshifted and shifted, beside its bytes at 3.35 TB/s, the plain chain
      and F.scaled_dot_product_attention on windows already cut; kernel A
      at SwinIR's 180 -> 180 and 180 -> 64 convs against cuDNN with its
-     bias (why those convs stay on cuDNN);
+     bias (why those convs stay on cuDNN); the token GEMM at the frame's
+     four products beside their bytes at 3.35 TB/s, the plain chain and
+     F.linear (cuBLAS) with ATen's GELU or residual add;
   8. SRGAN training at full width (16 blocks, x8, D at 192^2, batch 8):
      the training G's forward and backward, fused (g_fuse 'train') in f32
      against the unfused net in f64 on the 24^2 patch (output 1e-4,
@@ -558,6 +568,7 @@ def reset_counts():
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
     from tpusr_torch.ops import fused_degrade as fd
+    from tpusr_torch.ops import token_gemm as tg
     from tpusr_torch.ops import window_attention as wa
 
     fc.reset_launch_counts()
@@ -565,6 +576,7 @@ def reset_counts():
     fd.reset_launch_counts()
     bn_act.reset_launch_counts()
     wa.reset_launch_counts()
+    tg.reset_launch_counts()
 
 
 def read_counts():
@@ -572,10 +584,11 @@ def read_counts():
     from tpusr_torch.ops import dense_block as db
     from tpusr_torch.ops import fused_conv as fc
     from tpusr_torch.ops import fused_degrade as fd
+    from tpusr_torch.ops import token_gemm as tg
     from tpusr_torch.ops import window_attention as wa
 
     return {**fc.LAUNCHES, **db.LAUNCHES, **fd.LAUNCHES, **bn_act.LAUNCHES,
-            **wa.LAUNCHES}
+            **wa.LAUNCHES, **tg.LAUNCHES}
 
 
 def run_main_path(cli, root, dtype, num_iter, log_freq):
@@ -932,10 +945,19 @@ def measure(label, kern, plain, lib, flops, nbytes, dtype):
 WA_SHAPE = (1, 272, 480, 6, 30)  # B, Hp, Wp, heads, head dimension
 # the window kernel's profiler names: window_attention_kernel<bf16 / float>
 KERNEL_WA = "namespace)::window_attention_kernel"
+# the token GEMM's profiler names: token_gemm_kernel<k-steps, chunks, epilogue>
+KERNEL_TG = "namespace)::token_gemm_kernel"
 # launches of one SwinIR-M x4 frame: the window kernel once a Swin layer
 # (6 RSTBs x 6), kernel A for the tail's three 64 -> 64 convs (the convs at
-# 180 channels, conv_first and conv_last run on cuDNN)
+# 180 channels, conv_first and conv_last run on cuDNN), and in bf16 the
+# token GEMM four times a layer (qkv, proj, fc1, fc2; f32 keeps F.linear)
 SWINIR_FRAME = {"window_attention": 36, "fused_conv3x3_fwd": 3}
+SWINIR_FRAME_BF16 = {**SWINIR_FRAME, "token_gemm": 144}
+# the token GEMM at the cell's frame: (K, N, epilogue) of qkv, proj, fc1, fc2
+TG_TOKENS = 272 * 480
+TG_PRODUCTS = [("qkv", 180, 540, "bias"), ("proj", 180, 180, "residual"),
+               ("fc1", 180, 360, "gelu"), ("fc2", 360, 180, "residual")]
+TG_TOL = {"rel": 1e-2, "rms": 5e-3}
 
 
 def wa_operands(dtype, gen):
@@ -1057,10 +1079,11 @@ def run_swinir_main_path(dtype, top=12):
     """Phase 4d: the benchmark's swinir-x4-1080p-bf16 entry on the port,
     ``generator_forward(train=False)`` with ``GANTrainConfig(generator=
     'swinir', factor=4)`` on a 270 x 480 LR frame (1080 x 1920 out): one
-    frame with the launch counts read from 0 around it (SWINIR_FRAME), its
-    checks, the frame time fused and unfused (CUDA events, 1 warm-up and
-    3 frames), and one profiled frame, whose window must record all of
-    its window-kernel and kernel-A launches."""
+    frame with the launch counts read from 0 around it (SWINIR_FRAME; in
+    bf16 SWINIR_FRAME_BF16, the token GEMM's 144 with them), its checks,
+    the frame time fused and unfused (CUDA events, 1 warm-up and 3
+    frames), and one profiled frame, whose window must record all of its
+    window-kernel, kernel-A and token-GEMM launches."""
     from tpusr_torch.engine.gan import generator_forward
 
     name = "float32" if dtype is None else str(dtype)[6:]
@@ -1069,6 +1092,7 @@ def run_swinir_main_path(dtype, top=12):
     mpix = 16 * LR_RRDB[0] * LR_RRDB[1] / 1e6
     net, config = swinir_net(dtype, "auto")
     net.eval()
+    want = SWINIR_FRAME if dtype is None else SWINIR_FRAME_BF16
     with torch.inference_mode():
         reset_counts()
         y = generator_forward(net, lr, config)
@@ -1080,8 +1104,8 @@ def run_swinir_main_path(dtype, top=12):
                 and bool(torch.isfinite(y).all())):
             raise AssertionError("SwinIR output is not a finite f32 "
                                  "(1, 1080, 1920, 3) frame")
-        if any(counts[k] != n for k, n in SWINIR_FRAME.items()) or any(
-                v for k, v in counts.items() if k not in SWINIR_FRAME):
+        if any(counts[k] != n for k, n in want.items()) or any(
+                v for k, v in counts.items() if k not in want):
             raise AssertionError(f"SwinIR main path missed the kernels: "
                                  f"{counts}")
         del y
@@ -1092,12 +1116,14 @@ def run_swinir_main_path(dtype, top=12):
         ms = time_ms(lambda: frame(net), 3, warmup=1)
         kernels, busy = profile_window(
             lambda: frame(net), 1,
-            expect={KERNEL_WA: 36, KERNEL_A: 3})
+            expect={KERNEL_WA: 36, KERNEL_A: 3,
+                    **({} if dtype is None else {KERNEL_TG: 144})})
         off, _ = swinir_net(dtype, "off")
         off.load_state_dict(net.state_dict())
         ms_off = time_ms(lambda: frame(off.eval()), 3, warmup=1)
         del off
-    groups = {"window kernel": KERNEL_WA, "kernel A": KERNEL_A}
+    groups = {"window kernel": KERNEL_WA, "kernel A": KERNEL_A,
+              "token GEMM": KERNEL_TG}
     split = {g: sum(e.self_device_time_total for e in kernels
                     if key in e.key) / 1e3 for g, key in groups.items()}
     split["other device ops"] = busy - sum(split.values())
@@ -1161,6 +1187,109 @@ def time_window_attention():
                                     f"unshifted, {str(dtype)[6:]}")
                     rows[str(dtype)[6:]] = row
                 del q, k, v, mask
+    return rows
+
+
+def tg_operands(k, n, epi, gen, tokens=TG_TOKENS):
+    """x N(0, 1) tokens, an nn.Linear's U(+-1/sqrt(K)) weight, bias and
+    residual N(0, 1) (so that leaving either out moves the output), bf16."""
+    x = torch.randn((tokens, k), generator=gen, device="cuda").bfloat16()
+    w = ((torch.rand((n, k), generator=gen, device="cuda") * 2 - 1)
+         / k ** 0.5).bfloat16()
+    b = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    res = (torch.randn((tokens, n), generator=gen, device="cuda").bfloat16()
+           if epi == "residual" else None)
+    return x, w, b, res
+
+
+def tg_measures(got, want):
+    """(max |got - want| / max |want|, rms(got - want) / rms(want))."""
+    d = got.double() - want
+    return (float(d.abs().max() / want.abs().max()),
+            float(d.square().mean().sqrt() / want.square().mean().sqrt()))
+
+
+def check_token_gemm():
+    """Phase 2, the token GEMM (ops/token_gemm.py) at the four products of
+    a SwinIR-M layer on the cell's frame (TG_PRODUCTS, 130,560 tokens),
+    and at an odd 1,919 tokens (the last tile ends 8 bytes past a 16-byte
+    boundary), against the plain chain in f64 on the same values: both
+    measures under TG_TOL (one rounding to bf16, 2^-9 at most), one launch
+    a call. Then K's tail dropped (the k-step that runs past K: columns
+    176-179 at K = 180, 352-359 at 360), held to the sound kernel, must
+    read above TG_TOL. Returns the largest max-relative error."""
+    from tpusr_torch.ops import token_gemm as tg
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = 0.0
+    with torch.inference_mode():
+        for name, k, n, epi in TG_PRODUCTS:
+            for tokens in (TG_TOKENS, 1919):
+                x, w, b, res = tg_operands(k, n, epi, gen, tokens)
+                tg.reset_launch_counts()
+                got = tg.token_linear(x, w, b, res, epi == "gelu",
+                                      tg.pack(w, epi))
+                torch.cuda.synchronize()
+                launches = tg.LAUNCHES["token_gemm"]
+
+                def plain(x):
+                    return tg.token_linear_reference(
+                        x.double(), w.double(), b.double(),
+                        None if res is None else res.double(),
+                        epi == "gelu")
+
+                rel, rms = tg_measures(got, plain(x))
+                worst = max(worst, rel)
+                cut = x.clone()
+                cut[:, k - k % 16:] = 0
+                fault = tg_measures(got, plain(cut))
+                print(f"check token_gemm {name} ({tokens}, {k}) -> {n} "
+                      f"{epi}: rel {rel:.3e}, rms {rms:.3e}, {launches} "
+                      f"launch; K's tail dropped: rel {fault[0]:.3e}, rms "
+                      f"{fault[1]:.3e}")
+                if not (rel < TG_TOL["rel"] and rms < TG_TOL["rms"]):
+                    raise AssertionError(f"token_gemm {name} disagrees with "
+                                         f"the plain chain: {rel}, {rms}")
+                if launches != 1:
+                    raise AssertionError(f"token_gemm launched {launches} "
+                                         f"times in one call")
+                if not (fault[0] > TG_TOL["rel"] and fault[1] > TG_TOL["rms"]):
+                    raise AssertionError(f"token_gemm {name}: K's tail "
+                                         f"dropped reads {fault}")
+    return worst
+
+
+def time_token_gemm():
+    """Phase 7, the token GEMM at the four products of the cell's frame
+    (weights packed beforehand, as the model packs them once a frame): its
+    device time beside its bound (x, the residual and the output moved
+    once, the weights and bias once, at 3.35 TB/s; the products' 2 M N K at
+    989 TFLOP/s), the plain chain's time (CUDA events) and, as the library
+    yardstick, the same chain as one call a step: F.linear (cuBLAS) then
+    ATen's GELU or residual add, device time behind a sleep."""
+    from tpusr_torch.ops import token_gemm as tg
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    with torch.inference_mode():
+        for name, k, n, epi in TG_PRODUCTS:
+            x, w, b, res = tg_operands(k, n, epi, gen)
+            packed = tg.pack(w, epi)
+            gelu = epi == "gelu"
+            nbytes = (x.numel() + TG_TOKENS * n * (2 if res is not None
+                                                   else 1)
+                      + w.numel() + n) * 2
+
+            def chain():
+                return tg.token_linear_reference(x, w, b, res, gelu)
+
+            row = measure(
+                f"token_gemm {name} ({TG_TOKENS}, {k}) -> {n} {epi}, "
+                f"bfloat16",
+                lambda: tg.token_linear(x, w, b, res, gelu, packed=packed),
+                chain, chain, 2 * TG_TOKENS * n * k, nbytes, torch.bfloat16)
+            row["shape"] = f"({TG_TOKENS}, {k}) -> {n} + {epi}, bfloat16"
+            rows[name] = row
     return rows
 
 
@@ -3635,6 +3764,7 @@ def main() -> int:
     worst.update(check_degrade_kernels())
     worst.update(check_bn_act_kernels())
     worst["window_attention"] = check_window_attention()
+    worst["token_gemm"] = check_token_gemm()  # bf16, max relative
     print(f"phase 2: kernels agree with their plain versions; largest f32 "
           f"abs errors {worst}")
 
@@ -3705,11 +3835,15 @@ def main() -> int:
     wa_timed = time_window_attention()
     timed["window_attention"] = dict(wa_timed["float32"],
                                      bfloat16=wa_timed["bfloat16"])
+    tg_timed = time_token_gemm()
+    timed["token_gemm"] = dict(tg_timed["qkv"], proj=tg_timed["proj"],
+                               fc1=tg_timed["fc1"], fc2=tg_timed["fc2"])
     time_swinir_kernel_a()
     print("phase 7: timed (the record below is at up0_conv, 512^2, for A "
           "and B, at (1, 270, 480, 64) for C, at the DIV2K HR frame for D "
           "and E, at up0's (1, 512, 512, 128) for the BatchNorm glue, at "
-          "SwinIR-M's qkv (1, 272 * 480, 540) for the window kernel)")
+          "SwinIR-M's qkv (1, 272 * 480, 540) for the window kernel, at "
+          "the frame's four products for the token GEMM)")
 
     import dataclasses
     from tpusr_torch.engine.gan import GANTrainConfig
@@ -3767,14 +3901,16 @@ def main() -> int:
                 "fused_add_salt_pepper_noise":
                     "tpusr/ops/pallas_degrade.py:52",
                 **{k: "none: XLA fuses tpusr's BatchNorm glue" for k in BN_ACT},
-                "window_attention": "none: tpusr has no transformer"}
+                "window_attention": "none: tpusr has no transformer",
+                "token_gemm": "none: tpusr has no transformer"}
     sources = {"fused_conv3x3_fwd": "tpusr_torch/csrc/fused_conv3x3.cu",
                "fused_conv3x3_wgrad": "tpusr_torch/csrc/fused_conv3x3.cu",
                "dense_block": "tpusr_torch/csrc/dense_block.cu",
                "fused_add_gaussian_noise": "tpusr_torch/csrc/degrade.cu",
                "fused_add_salt_pepper_noise": "tpusr_torch/csrc/degrade.cu",
                **{k: "tpusr_torch/csrc/bn_act.cu" for k in BN_ACT},
-               "window_attention": "tpusr_torch/csrc/window_attention.cu"}
+               "window_attention": "tpusr_torch/csrc/window_attention.cu",
+               "token_gemm": "tpusr_torch/csrc/token_gemm.cu"}
     designs = {
         "fused_conv3x3_fwd": "wgmma bf16 (m64nNk16, N 64/128, 16x16-pixel "
                              "tile, 9 taps as descriptors into one staged "
@@ -3805,7 +3941,14 @@ def main() -> int:
                             "to 32, softmax in f32 registers; the cyclic "
                             "shift, the relative-position bias and the "
                             "shifted-window mask in its addressing, tokens "
-                            "read and written in image order"}
+                            "read and written in image order",
+        "token_gemm": "persistent blocks, each with one slice of N's packed "
+                      "weights resident in shared memory; wgmma m64n96k16 "
+                      "bf16, A from registers, each 64-row tile of x "
+                      "brought in by one bulk copy into a ring; bias, "
+                      "residual and erff GELU on the f32 accumulator, one "
+                      "rounding to bf16, stores staged in shared memory "
+                      "(qkv at the top, proj, fc1, fc2 nested)"}
     record = {"kernels": [
         dict(name=k, route="cuda", source=sources[k], replaces=replaces[k],
              design=designs[k],

@@ -28,19 +28,22 @@ torch.bfloat16: bf16 activations and GEMM/conv operands with f32
 accumulation, LayerNorm and softmax statistics in f32, f32 parameters
 (cast once a forward for the blocks: one cat and one cast) and output.
 
-``fusion='auto'`` routes qkv, proj, fc1 and fc2 to cuBLAS (``F.linear``
-on the token-major activations), each layer's windowed attention to one
-launch of the hand-written kernel (``ops/window_attention.py``, 36 a
-frame), the tail's 64 -> 64 convs to kernel A as RRDBNet's, and the
-convs at 180 channels (one per RSTB, conv_after_body and
-conv_before_upsample), conv_first and conv_last to cuDNN: kernel A takes
-180 channels but is tuned for 64 and 128. At 180 -> 180 on the 272 x 480
+``fusion='auto'`` routes each layer's qkv, proj (+ the residual), fc1 (+
+GELU) and fc2 (+ the residual) in bf16 on a card to the hand-written token
+GEMM (``ops/token_gemm.py``, 144 launches a frame; the weights packed once
+a forward beside the operands' cast, ``token_packs``), f32 ones to
+``F.linear``, each layer's windowed attention to one launch of the
+hand-written kernel (``ops/window_attention.py``, 36 a frame), the tail's
+64 -> 64 convs to kernel A as RRDBNet's, and the convs at 180 channels
+(one per RSTB, conv_after_body and conv_before_upsample), conv_first and
+conv_last to cuDNN: kernel A takes 180 channels but is tuned for 64 and
+128. At 180 -> 180 on the 272 x 480
 frame in bf16 on an H100, kernel A takes 0.58 ms a call and cuDNN's conv
 with its bias 0.45 alone, ~0.21 inside the frame; at 180 -> 64 the two
 are even (``chip_smoke.py``'s ``time_swinir_kernel_a`` and
 ``run_swinir_main_path`` time them). ``'off'`` keeps every conv on
-``F.conv2d`` and runs the attention's plain chain. On a CPU tensor both
-kernels run their plain versions.
+``F.conv2d`` and runs the attention's and the products' plain chains. On a
+CPU tensor the kernels run their plain versions.
 
 Spans (``utils/profiling.span``, the shared no-op while spans are off):
 ``swinir.body`` (fields ``groups``, the RSTBs; ``layers``, the Swin
@@ -58,6 +61,8 @@ from torch import nn
 from tpusr_torch.device import resolve_device
 from tpusr_torch.models.layers import (Conv, Dense, fusion_mode,
                                       nearest_conv_tail)
+from tpusr_torch.ops import token_gemm
+from tpusr_torch.ops.token_gemm import token_linear
 from tpusr_torch.ops.window_attention import WINDOW, window_attention
 from tpusr_torch.utils.profiling import span
 
@@ -65,6 +70,9 @@ RGB_MEAN = (0.4488, 0.4371, 0.4040)  # DIV2K's, as published
 EPS = 1e-5  # nn.LayerNorm's
 SLOPE_BEFORE_UPSAMPLE = 0.01  # nn.LeakyReLU's default, as published
 LAYER_LEAVES = 12  # the leaves a Swin layer takes in the activations' dtype
+# qkv's, proj's, fc1's and fc2's weights among a layer's leaves, and each
+# product's epilogue in the token GEMM
+PRODUCTS = ((2, "bias"), (4, "residual"), (8, "gelu"), (10, "residual"))
 
 
 class LayerNorm(nn.Module):
@@ -128,19 +136,23 @@ class SwinLayer(nn.Module):
                 self.mlp.fc1.weight, self.mlp.fc1.bias,
                 self.mlp.fc2.weight, self.mlp.fc2.bias]
 
-    def forward(self, x, hw, ops):
+    def forward(self, x, hw, ops, packs):
         """x: (B, H*W, C) tokens in image order; ops: ``operand_leaves``
-        in x's dtype."""
+        in x's dtype; packs: qkv's, proj's, fc1's and fc2's weights as
+        ``token_gemm.pack`` lays them out, for the kernel, or None for the
+        plain chain."""
         (n1w, n1b, qkv_w, qkv_b, proj_w, proj_b, n2w, n2b, fc1_w, fc1_b,
          fc2_w, fc2_b) = ops
+        qkv_p, proj_p, fc1_p, fc2_p = (None,) * 4 if packs is None else packs
         c = x.shape[-1]
-        qkv = F.linear(F.layer_norm(x, (c,), n1w, n1b, EPS), qkv_w, qkv_b)
+        qkv = token_linear(F.layer_norm(x, (c,), n1w, n1b, EPS), qkv_w, qkv_b,
+                           packed=qkv_p)
         a = window_attention(qkv, self.attn.relative_position_bias_table,
                              hw, self.attn.heads, self.shift, self.plain)
-        x = x + F.linear(a, proj_w, proj_b)
-        y = F.gelu(F.linear(F.layer_norm(x, (c,), n2w, n2b, EPS), fc1_w,
-                            fc1_b))
-        return x + F.linear(y, fc2_w, fc2_b)
+        x = token_linear(a, proj_w, proj_b, residual=x, packed=proj_p)
+        y = token_linear(F.layer_norm(x, (c,), n2w, n2b, EPS), fc1_w, fc1_b,
+                         gelu=True, packed=fc1_p)
+        return token_linear(y, fc2_w, fc2_b, residual=x, packed=fc2_p)
 
 
 class BasicLayer(nn.Module):
@@ -163,10 +175,10 @@ class RSTB(nn.Module):
         self.conv = Conv(dim, dim, 3, dtype=dtype, generator=generator,
                          fusion=fusion)
 
-    def forward(self, x, hw, ops):
+    def forward(self, x, hw, ops, packs):
         y = x
-        for blk, o in zip(self.residual_group.blocks, ops):
-            y = blk(y, hw, o)
+        for blk, o, p in zip(self.residual_group.blocks, ops, packs):
+            y = blk(y, hw, o, p)
         y = self.conv(_image(y, hw))
         return _tokens(y) + x
 
@@ -244,6 +256,7 @@ class SwinIR(nn.Module):
             raise ValueError("depths and num_heads differ in length")
         fusion = fusion_mode(fusion)
         dev = resolve_device(device)
+        self.plain = fusion == "off"
         self.dtype, self.upscale, self.img_range = dtype, upscale, img_range
         self.depths, self.shift = tuple(depths), WINDOW // 2
 
@@ -287,6 +300,14 @@ class SwinIR(nn.Module):
         return [t.view(p.shape) for t, p in
                 zip(flat.split([p.numel() for p in leaves]), leaves)]
 
+    def token_packs(self, per_layer) -> list[tuple[torch.Tensor, ...]]:
+        """Each layer's (qkv, proj, fc1, fc2) weights as the token GEMM
+        reads them: one stack and one ``token_gemm.pack`` a product, every
+        layer at once."""
+        kinds = [token_gemm.pack(torch.stack([o[i] for o in per_layer]),
+                                 epi).unbind(0) for i, epi in PRODUCTS]
+        return list(zip(*kinds))
+
     def forward(self, x):
         h, w = x.shape[2:]
         pad_h, pad_w = (-h) % WINDOW, (-w) % WINDOW
@@ -298,6 +319,9 @@ class SwinIR(nn.Module):
         ops = self.operands(fea.dtype)
         per_layer = [ops[i:i + LAYER_LEAVES]
                      for i in range(4, len(ops), LAYER_LEAVES)]
+        packs = (self.token_packs(per_layer)
+                 if token_gemm.on_kernel(fea) and not self.plain
+                 else [None] * len(per_layer))
         hw = tuple(fea.shape[2:])
         with span("swinir.body", groups=len(self.layers),
                   layers=sum(self.depths),
@@ -307,11 +331,11 @@ class SwinIR(nn.Module):
             t = F.layer_norm(_tokens(fea), (c,), ops[0], ops[1], EPS)
             for rstb in self.layers:
                 n = len(rstb.residual_group.blocks)
-                t = rstb(t, hw, per_layer[:n])
-                per_layer = per_layer[n:]
+                t = rstb(t, hw, per_layer[:n], packs[:n])
+                per_layer, packs = per_layer[n:], packs[n:]
             t = F.layer_norm(t, (c,), ops[2], ops[3], EPS)
         fea = self.conv_after_body(_image(t, hw)) + fea
-        del t, ops, per_layer  # what the tail's peak need not hold
+        del t, ops, per_layer, packs  # what the tail's peak need not hold
         fea = F.leaky_relu(self.conv_before_upsample(fea),
                            SLOPE_BEFORE_UPSAMPLE)
         y = nearest_conv_tail(
